@@ -1,0 +1,108 @@
+"""The PyTorch port stands alone: every module imports without JAX or the
+JAX package, its sources name neither, and its entry points refuse to run
+on a missing CUDA device instead of dropping to the CPU."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+PORT = SRC / "repro_torch"
+
+IMPORT_ALL = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes")
+             or m == "repro" or m.startswith("repro."))
+assert not bad, bad
+print(len(names))
+"""
+
+
+def test_every_module_imports_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    r = subprocess.run([sys.executable, "-c", IMPORT_ALL], env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.strip()) >= 25      # configs, models, serving, ...
+
+
+@pytest.mark.parametrize("needle", [
+    "import jax", "from repro.", "import repro.", "ml_dtypes",
+    "scaled_dot_product_attention", "torch.compile"])
+def test_sources_name_no_jax_or_library_kernel(needle):
+    hits = [str(f.relative_to(SRC)) for f in sorted(PORT.rglob("*"))
+            if f.suffix in (".py", ".cu", ".cuh")
+            and needle in f.read_text()]
+    assert not hits, hits
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.serving import PagedCacheConfig, init_paged_cache
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("qwen2_7b", smoke=True)
+    pcfg = PagedCacheConfig(page_size=8, n_pages=5, max_slots=2,
+                            max_blocks=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_paged_cache(cfg, pcfg)
+    model = build_model(cfg, device="cpu")
+    assert model.device.type == "cpu"
+    cache = init_paged_cache(cfg, pcfg, device="cpu")
+    assert cache["blocks"]["k_pages"].shape == (2, 5, 8, 1, 8)
+
+
+def test_unported_paths_raise_not_implemented():
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.models.common import Ctx, linear
+    from repro_torch.quant.policy import PrecisionPolicy
+    from repro_torch.serving import (DurabilityPolicy, PagedCacheConfig,
+                                     PagedServingEngine, ServingPlan)
+    cfg = get_config("qwen2_7b", smoke=True)
+    model = build_model(cfg, device="cpu")
+    pcfg = PagedCacheConfig(page_size=8, n_pages=5, max_slots=2,
+                            max_blocks=2)
+    with pytest.raises(NotImplementedError, match="serial"):
+        PagedServingEngine(model, pcfg, prefill_mode="serial")
+    plan = ServingPlan(cache=pcfg, durability=DurabilityPolicy(
+        enabled=True, journal_dir="/nonexistent"))
+    with pytest.raises(NotImplementedError, match="journal"):
+        PagedServingEngine.from_plan(model, plan)
+    x, w = torch.ones((1, 4)), torch.ones((4, 2))
+    for level in ("int8", "fp8"):
+        with pytest.raises(NotImplementedError, match="quant_matmul"):
+            linear(Ctx(policy=PrecisionPolicy(default=level)), "m", x, w)
+    with pytest.raises(NotImplementedError):
+        build_model(get_config("deepseek_v2_236b", smoke=True),
+                    device="cpu")
+
+
+def test_params_from_jax_splits_blocks_and_reads_bf16():
+    import jax.numpy as jnp
+    from repro_torch.convert import params_from_jax
+    eye = np.eye(3, dtype=np.float32)
+    scale = np.asarray(jnp.asarray([1.0, -2.5, 3.0e-3], jnp.bfloat16))
+    tree = {"embed": np.ones((4, 3), np.float32),
+            "blocks": {"attn": {"wq": np.stack([eye, 2 * eye])}},
+            "final_norm": {"scale": scale}}
+    sd = params_from_jax(tree)
+    assert sorted(sd) == ["blocks.0.attn.wq", "blocks.1.attn.wq", "embed",
+                          "final_norm.scale"]
+    assert torch.equal(sd["blocks.1.attn.wq"], torch.from_numpy(2 * eye))
+    assert sd["final_norm.scale"].dtype == torch.bfloat16
+    assert torch.equal(sd["final_norm.scale"],
+                       torch.tensor([1.0, -2.5, 3.0e-3], dtype=torch.bfloat16))
