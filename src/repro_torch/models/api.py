@@ -1,11 +1,14 @@
 """Model protocol: one handle over the ported model families.
 
-``build_model(cfg, device=...)`` returns an :class:`LMModel` exposing
-``init(seed)`` (randomly initialised parameters), ``empty_params()``
-(uninitialised, for ``load_state_dict``), ``ctx(decode)`` and
-``decode_step(params, cache, tokens)``.  It runs on CUDA unless the
-caller passes ``device="cpu"``; on a machine without a card a CUDA
-model raises at construction.
+``build_model(cfg, policy, device=...)`` returns an :class:`LMModel`
+exposing ``init(seed)`` (randomly initialised parameters),
+``empty_params()`` (uninitialised, for ``load_state_dict``), ``ctx(decode)``,
+``init_cache(batch, seq_len)`` (the contiguous decode cache),
+``prefill(params, batch, cache)`` and ``decode_step(params, cache,
+tokens)`` over either cache layout.  The precision policy lives on the
+model, not on the parameters, so one parameter set serves under several
+policies.  It runs on CUDA unless the caller passes ``device="cpu"``; on
+a machine without a card a CUDA model raises at construction.
 """
 
 from __future__ import annotations
@@ -44,12 +47,31 @@ class LMModel:
         """Uninitialised parameters on the model's device."""
         return T.LM(self.cfg, self.device)
 
+    def init_cache(self, batch: int, seq_len: int,
+                   dtype: torch.dtype = torch.bfloat16) -> dict:
+        """The contiguous decode cache (:func:`transformer.init_lm_cache`)
+        on the model's device."""
+        return T.init_lm_cache(self.cfg, batch, seq_len, dtype, self.device)
+
+    @torch.no_grad()
+    def prefill(self, params: T.LM, batch: dict, cache: dict | None = None,
+                ctx: Ctx | None = None):
+        """Run ``batch["tokens"]`` (B, S) from position 0 and fill the
+        contiguous ``cache`` (a fresh one of length S when omitted).
+        Returns (logits, cache)."""
+        ctx = ctx or self.ctx(decode=False)
+        tokens = batch["tokens"]
+        if cache is None:
+            cache = self.init_cache(tokens.shape[0], tokens.shape[1])
+        return T.lm_apply(ctx, self.cfg, params, tokens, cache=cache)
+
     @torch.no_grad()
     def decode_step(self, params: T.LM, cache, tokens,
                     ctx: Ctx | None = None):
-        """One cached step over ``tokens`` (R, S) against a paged cache:
-        decode (S = 1) or, with ``prefill_lens`` in the cache, a ragged
-        admission prefill."""
+        """One cached step over ``tokens`` (R, S): against a contiguous
+        cache at its ``pos``, or against a paged cache — decode (S = 1)
+        or, with ``prefill_lens`` in the cache, a ragged admission
+        prefill."""
         ctx = ctx or self.ctx(decode=True)
         return T.lm_apply(ctx, self.cfg, params, tokens, cache=cache)
 

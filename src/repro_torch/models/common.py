@@ -21,7 +21,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.quant.policy import BF16, FP32, FP8, INT8, PrecisionPolicy
+from repro_torch.kernels.quant_matmul import quant_matmul
+from repro_torch.quant.policy import (BF16, FP32, FP8, INT8, PrecisionPolicy,
+                                     to_fp8_e4m3fn)
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -70,29 +72,49 @@ def linear(ctx: Ctx, name: str, x: torch.Tensor, w: torch.Tensor,
            b: torch.Tensor | None = None) -> torch.Tensor:
     """Policy-dispatched linear layer: ``x @ w + b``.
 
-    The precision level for ``name`` decides the executed product.  BF16
-    multiplies bf16 operands with fp32 accumulation and rounds once to the
-    activation dtype, as the JAX package's ``preferred_element_type``
-    product does: with bf16 activations that is a bf16 ``matmul``; with
-    fp32 activations the bf16-rounded operands are multiplied in fp32.
+    The precision level for ``name`` decides the executed product — the
+    cross-stage hook where the QUANTIZATION O-task's per-layer policy
+    reaches the kernel:
+
+    - FP32: an fp32 product;
+    - BF16: bf16 operands with fp32 accumulation, rounded once to the
+      activation dtype, as the JAX package's ``preferred_element_type``
+      product: with bf16 activations a bf16 ``matmul``, with fp32
+      activations the bf16-rounded operands multiplied in fp32;
+    - FP8: the weight stored as float8_e4m3fn, then the BF16 product;
+    - INT8: the quant_matmul kernel (dynamic per-row activation and
+      per-column weight quantization, int32 accumulation).
     """
     level = ctx.level_for(name)
     out_dtype = x.dtype
-    if level in (FP8, INT8):
-        raise NotImplementedError(
-            f"{level} linear ({name}) is not ported yet: it waits for the "
-            f"slice that ports the quant_matmul kernel and fp8 storage")
-    if level == FP32:
+    if level == INT8:
+        y = _int8_matmul(x, w)
+    elif level == FP8:
+        y = _bf16_matmul(x, to_fp8_e4m3fn(w).to(torch.bfloat16))
+    elif level == FP32:
         y = torch.matmul(x.float(), w.float())
-    elif out_dtype == torch.bfloat16:
-        y = torch.matmul(x.to(torch.bfloat16), w.to(torch.bfloat16))
     else:
-        y = torch.matmul(x.to(torch.bfloat16).float(),
-                         w.to(torch.bfloat16).float())
+        y = _bf16_matmul(x, w)
     y = y.to(out_dtype)
     if b is not None:
         y = y + b.to(out_dtype)
     return y
+
+
+def _bf16_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    if x.dtype == torch.bfloat16:
+        return torch.matmul(x, w.to(torch.bfloat16))
+    return torch.matmul(x.to(torch.bfloat16).float(),
+                        w.to(torch.bfloat16).float())
+
+
+def _int8_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Flatten the leading axes to (M, K), run quant_matmul (fp32 out)
+    and cast to the activation dtype, as the JAX package's kernel path
+    does.  The straight-through backward waits for the training slice."""
+    lead = x.shape[:-1]
+    y2 = quant_matmul(x.reshape(-1, x.shape[-1]), w)
+    return y2.reshape(*lead, w.shape[-1]).to(x.dtype)
 
 
 # ------------------------------------------------------------------ norms

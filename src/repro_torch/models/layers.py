@@ -1,20 +1,23 @@
 """Dense GQA attention and MLPs.
 
-Attention has the JAX package's execution paths, minus the ones later
-slices port:
+Attention has the JAX package's execution paths for dense GQA layers:
 
 - uncached (train / plain prefill): chunked memory-efficient attention
   (:func:`mea_attention`, online softmax over kv chunks);
+- contiguous decode cache (:func:`init_attention_cache`): prefill runs
+  the chunked attention and fills the cache (ring-rotated under a
+  sliding window, :func:`_fill_contiguous_cache`); one-token decode
+  writes the token's K/V at ``pos`` (``pos % cache_len`` in the ring)
+  and attends through flash_decode (:func:`_contiguous_attention_decode`);
 - paged decode and batched ragged admission prefill over a block-table
   page pool (:func:`_paged_attention_decode`,
-  :func:`_paged_attention_prefill`).  Both always call their kernel's
-  wrapper (kernels/flash_decode_paged.py, kernels/flash_prefill_ragged.py),
-  which launches the CUDA kernel for a CUDA tensor and runs the plain
-  PyTorch version (built from :func:`_masked_decode_attention` and
-  :func:`mea_attention`) for a CPU tensor.
+  :func:`_paged_attention_prefill`).
 
-The contiguous decode cache (and its flash_decode kernel), MLA, MoE and
-sliding-window ring layouts are not ported yet.
+The decode and paged branches always call their kernel's wrapper
+(kernels/flash_decode.py, flash_decode_paged.py, flash_prefill_ragged.py),
+which launches the CUDA kernel for a CUDA tensor and runs the plain
+PyTorch version (built from :func:`_masked_decode_attention` and
+:func:`mea_attention`) for a CPU tensor.  MLA and MoE are not ported yet.
 """
 
 from __future__ import annotations
@@ -223,7 +226,11 @@ def attention(ctx: Ctx, cfg: ArchConfig, p: Attention, x, positions,
     - ``cache is None``: chunked MEA over the sequence;
     - paged cache (``ctx.decode`` and ``"k_pages"`` in ``cache``): the
       ragged admission prefill when ``"prefill_lens"`` rides along, else
-      one-token decode.  The page pools are updated in place.
+      one-token decode.  The page pools are updated in place;
+    - contiguous cache (``{"k", "v", "pos"}``): with ``ctx.decode`` the
+      tokens at ``pos`` attend the cache, else a prefill from position 0
+      fills it.  ``k``/``v`` are updated in place and the returned dict
+      carries the advanced ``pos``.
 
     ``positions``: (S,) or per-request (R, S) absolute query positions.
     """
@@ -234,22 +241,93 @@ def attention(ctx: Ctx, cfg: ArchConfig, p: Attention, x, positions,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
-    if cache is None:
-        out = mea_attention(q, _expand_kv(k, h), _expand_kv(v, h),
-                            positions, positions, causal=causal,
-                            window=cfg.sliding_window, chunk=cfg.attn_chunk,
-                            bf16_operands=cfg.mea_bf16)
-    elif ctx.decode and "k_pages" in cache:
+    if cache is not None and ctx.decode and "k_pages" in cache:
         if "prefill_lens" in cache:
             out = _paged_attention_prefill(cfg, q, k, v, cache)
         else:
             out = _paged_attention_decode(cfg, q, k, v, cache)
+    elif cache is not None and ctx.decode:
+        out, cache = _contiguous_attention_decode(cfg, q, k, v, cache)
     else:
-        raise NotImplementedError(
-            "contiguous (non-paged) KV caches are not ported yet; they wait "
-            "for the slice that ports contiguous serving and flash_decode")
+        out = mea_attention(q, _expand_kv(k, h), _expand_kv(v, h),
+                            positions, positions, causal=causal,
+                            window=cfg.sliding_window, chunk=cfg.attn_chunk,
+                            bf16_operands=cfg.mea_bf16)
+        if cache is not None:
+            cache = _fill_contiguous_cache(cfg, k, v, cache)
     y = linear(ctx, "attn/wo", out.reshape(b, s, h * hd), p.wo)
     return y, cache
+
+
+def cache_len_for(cfg: ArchConfig, seq_len: int) -> int:
+    """Slots of a contiguous cache for ``seq_len`` tokens: all of them, or
+    the window under a sliding window (the ring buffer)."""
+    return seq_len if not cfg.sliding_window else min(seq_len,
+                                                      cfg.sliding_window)
+
+
+def init_attention_cache(cfg: ArchConfig, batch: int, seq_len: int,
+                         dtype=torch.bfloat16, device=None) -> dict:
+    """One layer's contiguous decode cache: ``k``/``v`` (B, cache_len, KV,
+    hd) zeros and ``pos`` 0 (``cache_len`` from :func:`cache_len_for`).
+    ``pos`` is a host integer: the write slot and the decode mask derive
+    from it without a device round trip."""
+    shape = (batch, cache_len_for(cfg, seq_len), cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": 0}
+
+
+def _contiguous_attention_decode(cfg: ArchConfig, q, k, v, cache):
+    """Cached attention of ``s`` new tokens at ``cache["pos"]``.
+
+    q/k/v: (B, s, ·, hd), already roped at ``pos + i``.  The new K/V is
+    written in place at slot ``pos`` (``pos % cache_len`` in the ring),
+    with the start clamped so the ``s`` rows fit, as the JAX package's
+    ``dynamic_update_slice`` clamps; then every query attends the cache
+    under the batch-shared mask from :func:`kv_positions_for_cache` /
+    :func:`decode_attention_mask` at ``pos`` — through flash_decode for
+    one token, through the plain masked attention for ``s > 1`` (the
+    kernel is single-token, as the JAX package's is).  The write precedes
+    the kernel's read on the same stream.  Returns (out, cache with
+    ``pos + s``)."""
+    from repro_torch.kernels.flash_decode import flash_decode
+    ck, cv = cache["k"], cache["v"]
+    pos = int(cache["pos"])
+    s = q.shape[1]
+    cache_len = ck.shape[1]
+    idx = pos % cache_len if cfg.sliding_window else pos
+    start = min(max(idx, 0), cache_len - s)
+    ck[:, start:start + s] = k.to(ck.dtype)
+    cv[:, start:start + s] = v.to(cv.dtype)
+    kv_pos = kv_positions_for_cache(pos, cache_len, cfg.sliding_window,
+                                    device=ck.device)
+    mask = decode_attention_mask(kv_pos, pos, cfg.sliding_window)
+    if s == 1:
+        out = flash_decode(q.contiguous(), ck, cv, mask)
+    else:
+        out = _masked_decode_attention(q, ck, cv, mask, cfg.n_heads)
+    return out, {"k": ck, "v": cv, "pos": pos + s}
+
+
+def _fill_contiguous_cache(cfg: ArchConfig, k, v, cache):
+    """Prefill of ``s`` tokens from position 0: the last ``cache_len`` of
+    them go into the cache in place, rotated under a sliding window so
+    position ``p`` sits at slot ``p % cache_len`` (the layout decode's
+    :func:`kv_positions_for_cache` recovers).  Returns the cache with
+    ``pos = s``."""
+    ck, cv = cache["k"], cache["v"]
+    s = k.shape[1]
+    cache_len = ck.shape[1]
+    kk, vv = (k, v) if s <= cache_len else (k[:, -cache_len:],
+                                            v[:, -cache_len:])
+    if cfg.sliding_window and s > cache_len:
+        shift = s % cache_len
+        kk = torch.roll(kk, shift, dims=1)
+        vv = torch.roll(vv, shift, dims=1)
+    ck[:, :kk.shape[1]] = kk.to(ck.dtype)
+    cv[:, :vv.shape[1]] = vv.to(cv.dtype)
+    return {"k": ck, "v": cv, "pos": s}
 
 
 def _paged_attention_decode(cfg: ArchConfig, q, k, v, cache):

@@ -3,10 +3,11 @@
 Block: ``[attn_norm → attn → +res, mlp_norm → mlp → +res] × L``.  The JAX
 package stacks the block parameters on a leading layer axis and scans
 over them; here the blocks are an ``nn.ModuleList`` walked by a Python
-loop.  The paged KV cache keeps one stacked ``(L, P, ps, KV, D)`` tensor
-per K and V, and layer ``l`` receives the view ``pool[l]``, so the
-layers' in-place page writes land in the stack and the engine can swap
-pages out as ``pool[:, pages]``.
+loop.  Both KV caches keep one stacked tensor per K and V — the paged
+pool ``(L, P, ps, KV, D)``, the contiguous cache ``(L, B, S, KV, D)`` —
+and layer ``l`` receives the view ``stack[l]``, so the layers' in-place
+writes land in the stack (and the engine can swap pages out as
+``pool[:, pages]``).
 
 MoE, MLA, SSM, hybrid and encoder-decoder families are not ported yet.
 """
@@ -101,6 +102,11 @@ def lm_apply(ctx: Ctx, cfg: ArchConfig, params: LM, tokens, positions=None,
     length.  The engine owns the ``seq_lens`` increment; ``lm_apply`` only
     reads it.  The page pools are updated in place and the returned cache
     holds the same tensors.
+
+    With a contiguous cache (:func:`init_lm_cache`) a decode call
+    (``ctx.decode``) places the tokens at ``pos + arange(S)``; a prefill
+    starts at position 0.  ``k``/``v`` are written in place and the
+    returned cache carries each layer's advanced ``pos``.
     """
     if tokens.ndim == 2:
         x = params.embed[tokens].to(cfg.adt)
@@ -108,17 +114,21 @@ def lm_apply(ctx: Ctx, cfg: ArchConfig, params: LM, tokens, positions=None,
         x = tokens.to(cfg.adt)
     b, s = x.shape[:2]
     paged = cache is not None and "block_tables" in cache
-    if cache is not None and not paged:
-        raise NotImplementedError(
-            "contiguous (non-paged) KV caches are not ported yet")
     if positions is None:
         if paged and ctx.decode:
             positions = L.ragged_prefill_positions(cache["seq_lens"], s)
+        elif cache is not None and ctx.decode:
+            positions = int(cache["pos"][0]) + torch.arange(s,
+                                                            device=x.device)
         else:
             positions = torch.arange(s, device=x.device)
 
+    new_pos = []
     for i, blk in enumerate(params.blocks):
         lc = None
+        if cache is not None and not paged:
+            lc = {"k": cache["k"][i], "v": cache["v"][i],
+                  "pos": int(cache["pos"][i])}
         if paged:
             # block tables / seq_lens are batch state shared by every
             # layer — injected here; prefill_lens rides along only during
@@ -130,14 +140,33 @@ def lm_apply(ctx: Ctx, cfg: ArchConfig, params: LM, tokens, positions=None,
                   "seq_lens": cache["seq_lens"]}
             if "prefill_lens" in cache:
                 lc["prefill_lens"] = cache["prefill_lens"]
-        x, _ = lm_block_apply(ctx, cfg, blk, x, positions, lc)
+        x, lc = lm_block_apply(ctx, cfg, blk, x, positions, lc)
+        if lc is not None and not paged:
+            new_pos.append(lc["pos"])
 
     new_cache = None
     if paged:
         new_cache = {"blocks": cache["blocks"],
                      "block_tables": cache["block_tables"],
                      "seq_lens": cache["seq_lens"]}
+    elif cache is not None:
+        new_cache = {"k": cache["k"], "v": cache["v"],
+                     "pos": torch.tensor(new_pos, dtype=torch.int32)}
     x = norm_apply(cfg.norm, params.final_norm, x)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
     logits = linear(ctx, "lm_head", x, head)
     return logits, new_cache
+
+
+def init_lm_cache(cfg: ArchConfig, batch: int, seq_len: int,
+                  dtype=torch.bfloat16, device=None) -> dict:
+    """The stacked contiguous decode cache of the whole model: ``k`` and
+    ``v`` (L, B, cache_len, KV, hd) zeros on ``device`` and the per-layer
+    ``pos`` (L,) int32 zeros, the JAX package's pytree.  ``pos`` stays a
+    host tensor: positions, write slots and masks derive from it without a
+    device round trip."""
+    n = cfg.n_layers
+    shape = (n, batch, L.cache_len_for(cfg, seq_len), cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.zeros((n,), dtype=torch.int32)}

@@ -20,8 +20,12 @@ the page pools in place (the JAX package jits them and donates the pools):
   non-finite-logit latch and seq_lens advancement kept on the device; the
   host reads the results back once per segment.
 
-The serial batch-1 admission path (``prefill_mode="serial"``) and the
-write-ahead journal (``plan.durability``) are not ported yet.
+- ``prefill_mode="serial"``: each admission prefills alone (batch 1)
+  into a contiguous scratch cache rounded up to whole pages, whose K/V
+  is then scattered into the request's pages (``_admit_serial``).  No
+  prefix sharing on this path (``ServingPlan.sharing``).
+
+The write-ahead journal (``plan.durability``) is not ported yet.
 
 The host loop runs at segment boundaries only, in a fixed order the
 resource manager's correctness depends on:
@@ -134,11 +138,6 @@ class PagedServingEngine:
         if not supports_paging(model.cfg):
             raise ValueError(f"{model.cfg.name} does not support the "
                              f"paged decode path")
-        if plan.prefill_mode != "batched":
-            raise NotImplementedError(
-                f"prefill_mode={plan.prefill_mode!r} is not ported yet: "
-                f"the serial admission path waits for the slice that "
-                f"ports contiguous serving")
         if plan.durability.enabled:
             raise NotImplementedError(
                 "plan.durability (the write-ahead journal) is not ported "
@@ -167,6 +166,21 @@ class PagedServingEngine:
         in place."""
         blocks["k_pages"][:, rows] = pk
         blocks["v_pages"][:, rows] = pv
+
+    @torch.no_grad()
+    def _prefill(self, params, prompt):
+        """prompt: (1, S).  Contiguous scratch cache rounded up to whole
+        pages so the K/V reshapes to (L, n_pages, page_size, KV, hd).
+        Returns the first greedy token (1, 1) and the page chunks."""
+        s = prompt.shape[1]
+        cache_len = self.pcfg.pages_for(s) * self.pcfg.page_size
+        cache = self.model.init_cache(1, cache_len, self.cache_dtype)
+        logits, cache = self.model.prefill(params, {"tokens": prompt},
+                                           cache)
+        tok = greedy_argmax(logits[:, -1:]).to(torch.int32)
+        n_layers, _, _, kv, hd = cache["k"].shape
+        shape = (n_layers, -1, self.pcfg.page_size, kv, hd)
+        return tok, cache["k"].reshape(shape), cache["v"].reshape(shape)
 
     @torch.no_grad()
     def _admit_batch(self, params, blocks, tokens, bt, offsets, lens,
@@ -237,6 +251,17 @@ class PagedServingEngine:
                 torch.stack(emits), poisoned)
 
     # --------------------------------------------------------- host loop
+    def _admit_serial(self, cache, bt, req, params):
+        """Serial admission: batch-1 prefill + page scatter (no sharing).
+        Returns (cache, first greedy token)."""
+        tok1, pk, pv = self._prefill(params, self._dev(req.prompt[None]))
+        n_pp = self.pcfg.pages_for(req.prompt_len)
+        rows = self._dev(np.asarray(req.pages[:n_pp], np.int64))
+        self._write_pages(cache["blocks"], pk, pv, rows)
+        bt[req.slot] = TRASH_PAGE
+        bt[req.slot, :len(req.pages)] = req.pages
+        return cache, int(tok1.cpu()[0, 0])
+
     def _admit_batched(self, cache, bt, admitted, params, faults=None):
         """Batched ragged admission: one dispatch per suffix bucket.
 
@@ -777,7 +802,7 @@ class EngineRun:
                 # unwind and retry.
                 failed_admissions.extend(("admission", r)
                                          for r in fresh)
-            elif fresh:
+            elif fresh and engine.prefill_mode == "batched":
                 self.cache, tok1, n_disp, failed = engine._admit_batched(
                     self.cache, bt, fresh, self.params, faults)
                 for req in fresh:
@@ -787,6 +812,26 @@ class EngineRun:
                 failed_admissions.extend(("admission", r)
                                          for r in failed)
                 self.n_prefill_dispatches += n_disp
+            elif fresh:
+                # serial: one dispatch per admission; a fault aborts the
+                # rest of the boundary, as in the batched path
+                admit_fault = False
+                for req in fresh:
+                    if admit_fault:
+                        failed_admissions.append(("admission", req))
+                        continue
+                    try:
+                        if faults is not None:
+                            faults.gate("dispatch_admit")
+                        self.cache, first = engine._admit_serial(
+                            self.cache, bt, req, self.params)
+                    except InjectedFault:
+                        admit_fault = True
+                        failed_admissions.append(("admission", req))
+                        continue
+                    self._start_request(req, first, clock())
+                    self.n_prefill_dispatches += 1
+                    ok_admitted.append(req)
             if self.tracer is not None:
                 # before finish_boundary: it clears req.swap, which is
                 # what distinguishes a restore from a fresh admission

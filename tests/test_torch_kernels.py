@@ -182,18 +182,37 @@ class TestPrefill:
         assert not bool(mask[1, 3].any())        # past lens: dead row
 
 
-def test_cuda_tensor_without_kernel_build_raises_not_falls_back():
-    """The CPU path is chosen by the tensor's device alone: a wrapper
-    handed a non-CPU tensor goes to the kernel path (here: a meta tensor,
-    which fails its checks) instead of the plain version."""
+def _meta_call(name):
+    """One call of wrapper ``name`` whose first tensor lies off the CPU (a
+    meta tensor) while the rest are CPU tensors of valid shapes."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import quant_matmul as qmm
     q = torch.empty((1, 1, 2, 8), device="meta")
     kp = torch.empty((2, 4, 1, 8), device="meta")
     bt = torch.zeros((1, 1), dtype=torch.int32)
     mask = torch.ones((1, 4), dtype=torch.bool)
+    return {
+        "flash_decode_paged": lambda: fdp.flash_decode_paged(q, kp, kp, bt,
+                                                             mask),
+        "flash_prefill_ragged": lambda: fpr.flash_prefill_ragged(
+            q, kp, kp, bt, bt[0], bt[0]),
+        "flash_decode": lambda: fd.flash_decode(
+            q, torch.empty((1, 4, 1, 8)), torch.empty((1, 4, 1, 8)),
+            mask[0]),
+        "quant_matmul": lambda: qmm.quant_matmul(
+            torch.empty((4, 8), device="meta"), torch.ones((8, 3))),
+    }[name]
+
+
+@pytest.mark.parametrize("name", ["flash_decode_paged",
+                                  "flash_prefill_ragged", "flash_decode",
+                                  "quant_matmul"])
+def test_cuda_tensor_without_kernel_build_raises_not_falls_back(name):
+    """The CPU path is chosen by the tensor's device alone: a wrapper
+    handed a non-CPU tensor goes to the kernel path (here: a meta tensor,
+    which fails its checks) instead of the plain version."""
     with pytest.raises(ValueError):
-        fdp.flash_decode_paged(q, kp, kp, bt, mask)
-    with pytest.raises(ValueError):
-        fpr.flash_prefill_ragged(q, kp, kp, bt, bt[0], bt[0])
+        _meta_call(name)()
 
 
 @pytest.mark.parametrize("window", [0, 5])
