@@ -8,8 +8,10 @@ Phases, each printing one JSON line or more:
                process per source, all started together);
 3. kernels   — each kernel against its plain PyTorch version on CUDA
                tensors at smoke and full-width shapes: the attention
-               kernels in fp32 and bf16 within tolerance, quant_matmul
-               exactly equal;
+               kernels and block_sparse_matmul in fp32 and bf16 within
+               tolerance, quant_matmul exactly equal (int32 wrap past
+               K = 133,143 included); each wrapper's shared-memory model
+               against the number its kernel library exports;
 4. cpu_vs_gpu — Qwen2-7B at full width cut to 2 layers in fp32: the port
                on the CPU (plain versions) and on the card (kernels) must
                emit equal greedy tokens — the paged engine through a
@@ -22,7 +24,17 @@ Phases, each printing one JSON line or more:
                tokens) under the bf16 and the int8-mlp policy; each run's
                launch counts must match its layers × steps;
 6. timing    — kernel, plain-version, roofline-bound and library times at
-               the phase-5 shapes.
+               the phase-5 shapes, and at the phase-8 shapes for
+               block_sparse_matmul and flash_attention;
+8. tune      — the TUNE O-task's flow at full width: ``ModelGen``
+               (Qwen2-7B, 28 layers, bf16, seed 0) → a 50 % block mask
+               on ``lm_head`` (standing in for PRUNING, whose LM path
+               fine-tunes and waits for the training slice) → ``Tune``
+               over the four largest problems, with launch counts equal
+               to the trials' (warmup + iters), a second execution all
+               cache hits, and the tuned dispatchers against their plain
+               versions.  Runs before phase 6, whose rows report its
+               launch counts.
 
 Then one ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line, and the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises and
@@ -34,7 +46,7 @@ Phase 7 (profile: torch.profiler over a shortened phase-5 burst and over
 16 contiguous decode steps under each policy — device busy share, the top
 kernels and host ops) runs only when asked.
 
-Usage: ``python3 chip_smoke.py [--phases 1,2,3,4,5,6[,7]]``.
+Usage: ``python3 chip_smoke.py [--phases 1,2,3,4,5,6,8[,7]]``.
 """
 
 from __future__ import annotations
@@ -53,9 +65,11 @@ OUT = ROOT / "chiprun_out"
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12            # dense bf16 tensor-core peak
 H100_INT8_OPS = 1979e12             # dense int8 tensor-core peak
+H100_FP32_FLOPS = 67e12             # fp32 outside the tensor cores
 FP32_TOL = 2e-5                     # as tests/test_paged.py
+MM_FP32_REL = 1e-5                  # fp32 products: of the largest output
 KERNELS = ("flash_decode_paged", "flash_prefill_ragged", "flash_decode",
-           "quant_matmul")
+           "quant_matmul", "block_sparse_matmul", "flash_attention")
 
 
 def emit(obj: dict) -> None:
@@ -128,11 +142,17 @@ def _prefill_inputs(gen, r, s, h, kvh, d, ps, m, offs, lens, dtype):
     return [t.cuda() for t in (q, kp, vp, bt, off, ln)]
 
 
-def _compare(name, out, ref, dtype, worst, case):
+def _compare(name, out, ref, dtype, worst, case, fp32_tol=None):
     import torch
     torch.cuda.synchronize()
+    if out.shape != ref.shape or out.dtype != ref.dtype:
+        raise AssertionError(f"{name} {case}: {out.dtype} {tuple(out.shape)} "
+                             f"!= plain {ref.dtype} {tuple(ref.shape)}")
     err = float((out.float() - ref.float()).abs().max())
-    tol = FP32_TOL if dtype == torch.float32 else bf16_tol(ref)
+    if dtype != torch.float32:
+        tol = bf16_tol(ref)
+    else:
+        tol = FP32_TOL if fp32_tol is None else fp32_tol
     if not (math.isfinite(err) and err <= tol):
         raise AssertionError(f"{name} {case}: max abs err {err} > {tol}")
     key = str(dtype).removeprefix("torch.")
@@ -180,7 +200,7 @@ def _contig_masks(cache_len: int) -> list:
 
 QMM_SHAPES = ((8, 3584, 18944), (8, 18944, 3584), (4096, 3584, 18944),
               (4096, 18944, 3584), (3, 56, 40), (5, 100, 17),
-              (130, 72, 200))
+              (130, 72, 200), (128, 152064, 3584))
 
 
 def _check_quant_matmul(gen) -> int:
@@ -192,7 +212,7 @@ def _check_quant_matmul(gen) -> int:
     n = 0
     for m, k, nn in QMM_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
-            if m == 4096 and dtype == torch.float32:
+            if (m == 4096 or k > 100_000) and dtype == torch.float32:
                 continue
             x = torch.randn((m, k), generator=gen).to(dtype).cuda()
             w = (0.02 * torch.randn((k, nn), generator=gen)).to(dtype).cuda()
@@ -206,7 +226,165 @@ def _check_quant_matmul(gen) -> int:
                     f"quant_matmul {(m, k, nn)} {dtype}: {bad} elements "
                     f"differ from the plain version")
             n += 1
+    # every product at +-127: 127 * 127 * 152,064 passes 2**31, so the
+    # int32 sums wrap (to negative values) in the kernel and the plain
+    # version alike
+    x = torch.ones((8, 152064), device="cuda")
+    w = torch.ones((152064, 64), device="cuda")
+    w[:, 32:] = -1.0
+    out = qmm.quant_matmul(x, w)
+    ref = qmm.quant_matmul_plain(x, w)
+    torch.cuda.synchronize()
+    if not torch.equal(out, ref) or not bool((out[:, :32] < 0).all()):
+        raise AssertionError(f"quant_matmul int32 wrap: kernel {out[0, :2]} "
+                             f"plain {ref[0, :2]}")
+    return n + 1
+
+
+# index lists of a (384, 256) weight (3 x 2 blocks): a dead column and a
+# dense one; then a column that skips block 1 (nonzero in w, never read)
+BSMM_KINDEX = {"dead_and_dense": [[-1, -1, -1], [0, 1, 2]],
+               "excluded_nonzero": [[0, 2], [1, -1]]}
+
+
+def _check_block_sparse(gen, worst) -> int:
+    """block_sparse_matmul against its plain version: the CPU tests'
+    (256, 384) @ (384, 256) cases, then problem 3 of phase 8 — Qwen2-7B's
+    lm_head shape (3584, 152064) under a 50 % block mask from
+    ``sparsity.masks.block_mask``, at M = 128 — with the masked weight and
+    with the unmasked one (blocks outside kindex must not be read)."""
+    import torch
+    from repro_torch.kernels import block_sparse_matmul as bsmm
+    from repro_torch.sparsity.masks import block_map, block_mask
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((256, 384), generator=gen).to(dtype).cuda()
+        w = torch.randn((384, 256), generator=gen).to(dtype).cuda()
+        for case, rows in BSMM_KINDEX.items():
+            kidx = torch.tensor(rows, dtype=torch.int32, device="cuda")
+            ref = bsmm.block_sparse_matmul_plain(x, w, kidx)
+            for bm in (32, 64, 128):
+                _compare("block_sparse_matmul",
+                         bsmm.block_sparse_matmul(x, w, kidx, block_m=bm),
+                         ref, dtype, worst, (case, bm),
+                         MM_FP32_REL * float(ref.float().abs().max()))
+                n += 1
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((128, 3584), generator=g, device="cuda").to(torch.bfloat16)
+    w = (0.02 * torch.randn((3584, 152064), generator=g, device="cuda")).to(
+        torch.bfloat16)
+    mask = block_mask(w, 0.5)
+    kidx = torch.from_numpy(bsmm.compact_block_index(block_map(mask))).cuda()
+    wm = (w.float() * mask).to(w.dtype)
+    del mask
+    for label, ww in (("masked", wm), ("unmasked", w)):
+        ref = bsmm.block_sparse_matmul_plain(x, ww, kidx)
+        for bm in (32, 64, 128):
+            _compare("block_sparse_matmul",
+                     bsmm.block_sparse_matmul(x, ww, kidx, block_m=bm), ref,
+                     torch.bfloat16, worst, ("lm_head", label, bm))
+            n += 1
+    xf, wf = x.float(), wm.float()
+    del w, wm
+    ref = bsmm.block_sparse_matmul_plain(xf, wf, kidx)
+    _compare("block_sparse_matmul", bsmm.block_sparse_matmul(xf, wf, kidx),
+             ref, torch.float32, worst, ("lm_head", "fp32"),
+             MM_FP32_REL * float(ref.abs().max()))
+    return n + 1
+
+
+def _check_flash_attention(gen, worst) -> int:
+    """flash_attention against its plain version: the CPU tests' grid
+    (g in {1, 2, 4}, Sq = Skv in {64, 100}, causal on and off, window in
+    {0, 16}, tiles (32, 32) and (64, 32)) at D = 64, then Qwen2-7B's
+    shapes (H = 28 over KV = 4, g = 7, D = 128): problem 4 of phase 8
+    (1, 512) in fp32 under every tile pair that fits, and prefill scale
+    (1, 4096) in bf16, causal and causal with a 1,024-key window."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for g in (1, 2, 4):
+            for s in (64, 100):
+                q = torch.randn((2, s, 4, 64), generator=gen).to(dtype).cuda()
+                k = torch.randn((2, s, 4 // g, 64), generator=gen).to(
+                    dtype).cuda()
+                v = torch.randn((2, s, 4 // g, 64), generator=gen).to(
+                    dtype).cuda()
+                for causal in (True, False):
+                    for window in (0, 16):
+                        ref = fa.flash_attention_plain(
+                            q, k, v, causal=causal, window=window)
+                        for bq, bkv in ((32, 32), (64, 32)):
+                            _compare("flash_attention", fa.flash_attention(
+                                q, k, v, causal=causal, window=window,
+                                block_q=bq, block_kv=bkv), ref, dtype, worst,
+                                (g, s, causal, window, bq, bkv))
+                            n += 1
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for s, dtype, cases in (
+            (512, torch.float32, [(True, 0), (True, 128), (False, 128)]),
+            (4096, torch.bfloat16, [(True, 0), (True, 1024)])):
+        q = torch.randn((1, s, 28, 128), generator=g, device="cuda").to(dtype)
+        k = torch.randn((1, s, 4, 128), generator=g, device="cuda").to(dtype)
+        v = torch.randn((1, s, 4, 128), generator=g, device="cuda").to(dtype)
+        tiles = [(bq, bkv) for bq in fa.Q_TILES for bkv in fa.Q_TILES
+                 if fa.smem_bytes(bq, bkv, 128, dtype) <= fa.SMEM_LIMIT]
+        if s > 512:
+            tiles = [(128, 128), (64, 64)]
+        for causal, window in cases:
+            ref = fa.flash_attention_plain(q, k, v, causal=causal,
+                                           window=window)
+            for bq, bkv in tiles:
+                _compare("flash_attention", fa.flash_attention(
+                    q, k, v, causal=causal, window=window, block_q=bq,
+                    block_kv=bkv), ref, dtype, worst,
+                    (s, causal, window, bq, bkv))
+                n += 1
+            del ref
     return n
+
+
+def _check_smem_models() -> int:
+    """Each wrapper's Python shared-memory model (what the autotuner
+    filters on and the wrapper checks) equals the number its kernel
+    library computes for the launch."""
+    from repro_torch.kernels import block_sparse_matmul as bsmm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import flash_decode_paged as fdp
+    from repro_torch.kernels import flash_prefill_ragged as fpr
+    pairs = []
+    for code, name in ((0, "float32"), (1, "bfloat16")):
+        for bm in (8, 32, 64, 96, 128, 256):
+            pairs.append((("bsmm", bm, name), bsmm.smem_bytes(bm, name),
+                          bsmm._lib().block_sparse_matmul_smem_bytes(bm,
+                                                                     code)))
+        for bq in fa.Q_TILES:
+            for bkv in (32, 64, 96, 128, 256):
+                for d in fa.HEAD_DIMS:
+                    pairs.append((("fa", bq, bkv, d, name),
+                                  fa.smem_bytes(bq, bkv, d, name),
+                                  fa._lib().flash_attention_smem_bytes(
+                                      bq, bkv, d, code)))
+    for g in (1, 2, 7):
+        for d in (8, 64, 128):
+            pairs.append((("fd", g, d), fd.smem_bytes(g, d),
+                          fd._lib().flash_decode_smem_bytes(g, d)))
+            for ps in (4, 8, 16, 48, 64, 128, 256):
+                pairs.append((("fdp", g, d, ps), fdp.smem_bytes(g, d, ps),
+                              fdp._lib().flash_decode_paged_smem_bytes(
+                                  g, d, ps)))
+                for bq in (1, 8, 32):
+                    pairs.append((("fpr", bq, g, d, ps),
+                                  fpr.smem_bytes(bq, g, d, ps),
+                                  fpr._lib().flash_prefill_ragged_smem_bytes(
+                                      bq, g, d, ps)))
+    bad = [(case, py, c) for case, py, c in pairs if py != c]
+    if bad:
+        raise AssertionError(f"shared-memory models differ from the kernels' "
+                             f"(case, python, library): {bad[:8]}")
+    return len(pairs)
 
 
 def phase_kernels() -> dict:
@@ -269,10 +447,16 @@ def phase_kernels() -> dict:
                 n_cases += 1
     n_qmm = _check_quant_matmul(gen)
     worst["quant_matmul"] = {"bfloat16": 0.0, "float32": 0.0}
+    worst["block_sparse_matmul"], worst["flash_attention"] = {}, {}
+    n_cases += _check_block_sparse(gen, worst)
+    n_cases += _check_flash_attention(gen, worst)
+    n_smem = _check_smem_models()
     emit({"phase": "kernels", "cases": n_cases + n_qmm, "fp32_tol": FP32_TOL,
+          "block_sparse_fp32_tol": "1e-5 * max|plain|",
           "bf16_tol": "2**-7 * max|plain| + 1e-6 (one bf16 ulp)",
-          "quant_matmul": f"{n_qmm} cases exactly equal",
-          "max_abs_err": worst})
+          "quant_matmul": f"{n_qmm} cases exactly equal, int32 wrap "
+                          f"included",
+          "smem_models_checked": n_smem, "max_abs_err": worst})
     return worst
 
 
@@ -460,7 +644,8 @@ def phase_serve() -> dict:
         "flash_decode_paged": cfg.n_layers * st["n_segments"]
         * pcfg.segment_len,
         "flash_prefill_ragged": cfg.n_layers * st["n_prefill_dispatches"],
-        "flash_decode": 0, "quant_matmul": 0}
+        "flash_decode": 0, "quant_matmul": 0, "block_sparse_matmul": 0,
+        "flash_attention": 0}
     n_tokens = sum(len(r.tokens) for r in reqs)
     bad = [r.rid for r in reqs
            if len(r.tokens) != c["max_new"]
@@ -527,7 +712,7 @@ def phase_generate(cfg, lm) -> dict:
         expected = {"flash_decode_paged": 0, "flash_prefill_ragged": 0,
                     "flash_decode": cfg.n_layers * (n_gen - 1),
                     "quant_matmul": n_mlp * cfg.n_layers * n_gen if int8
-                    else 0}
+                    else 0, "block_sparse_matmul": 0, "flash_attention": 0}
         if counts != expected:
             raise AssertionError(f"generate {pname}: launch counts {counts} "
                                  f"!= {expected}")
@@ -552,6 +737,215 @@ def phase_generate(cfg, lm) -> dict:
         del fns, model
         torch.cuda.empty_cache()
     return launches
+
+
+def _block_masks_task():
+    """A λ-task that puts ``handle.child(masks=build_masks(handle.params,
+    rate, "block"))`` into the model space: it stands in for the PRUNING
+    O-task, whose LM path fine-tunes and waits for the training slice."""
+    from repro_torch.core.metamodel import LEVEL_DNN
+    from repro_torch.core.task import LambdaTask
+    from repro_torch.sparsity.masks import build_masks
+
+    class BlockMasks(LambdaTask):
+        defaults = {"rate": 0.5}
+
+        def execute(self, meta, inputs):
+            art = meta.model(inputs[0])
+            handle = art.payload
+            masks = build_masks(handle.params, self.param(meta, "rate"),
+                                "block")
+            child = handle.child(masks=masks)
+            return [meta.add_model(f"{handle.name}+mask", LEVEL_DNN, child,
+                                   parent=inputs[0],
+                                   metrics=child.summary_metrics())]
+
+    return BlockMasks()
+
+
+def _tune_flow(cache_path):
+    from repro_torch.core.flow import DesignFlow
+    from repro_torch.tasks.model_gen import ModelGen
+    from repro_torch.tasks.tune import Tune
+    flow = DesignFlow("tune(qwen2-7b)")
+    flow.chain(ModelGen(model="qwen2-7b", train_en=False, device="cuda"),
+               _block_masks_task(),
+               Tune(cache_path=cache_path, device="cuda"))
+    return flow
+
+
+def _expected_problems(max_live: int) -> list:
+    """The four problems of ``derive_problems`` on Qwen2-7B with a block
+    mask on lm_head, largest first (the JAX package's list)."""
+    v, d = 152064, 3584
+    return [
+        {"kernel": "quant_matmul", "m": 128, "k": v, "n": d,
+         "dtype": "bfloat16", "out_dtype": "float32"},
+        {"kernel": "quant_matmul", "m": 128, "k": d, "n": v,
+         "dtype": "bfloat16", "out_dtype": "float32"},
+        {"kernel": "block_sparse_matmul", "m": 128, "k": d, "n": v,
+         "block": 128, "max_live": max_live, "dtype": "bfloat16"},
+        {"kernel": "flash_attention", "b": 1, "sq": 512, "h": 28, "d": 128,
+         "skv": 512, "kv_heads": 4, "dtype": "float32", "causal": True,
+         "window": 0}]
+
+
+def phase_tune() -> dict:
+    """MODEL-GEN → block mask → TUNE at full width on the card, executed
+    twice: the first run's launch counts must equal the trials' (warmup +
+    iters); then the tuned dispatchers and ``ops.masked_matmul`` on the
+    real masked lm_head and at problem 4's shape against their plain
+    versions; then, with the first run's model freed, the second run must
+    hit the cache for every problem and launch nothing.  Returns the first
+    run's launch counts."""
+    import tempfile
+
+    import torch
+    from repro_torch.kernels import autotune
+    from repro_torch.tasks.tune import derive_problems
+    cache_path = str(Path(tempfile.mkdtemp(prefix="chip_smoke_tune_"))
+                     / "autotune.json")
+    autotune.clear_memory_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    meta = _tune_flow(cache_path).execute()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    masked = meta.latest("dnn", lambda a: a.name.startswith("qwen2-7b+mask"))
+    handle = masked.payload
+    max_live = int(block_map_of(handle).sum(axis=0).max())
+    problems = derive_problems(handle, device="cuda", cache_path=cache_path)
+    if problems != _expected_problems(max_live):
+        raise AssertionError(f"phase 8: derived problems {problems}")
+    probes = meta.trace("tune.probe")
+    done = meta.trace("tune.done")
+    if [d["kernel"] for d in done] != [p["kernel"] for p in problems] \
+            or any(d["cached"] for d in done):
+        raise AssertionError(f"phase 8 first run: {done}")
+    per_call = 1 + 3                                  # Tune's warmup + iters
+    expected = {name: 0 for name in KERNELS}
+    for p in probes:
+        expected[p["kernel"]] += per_call
+    if counts != expected:
+        raise AssertionError(f"phase 8 launch counts {counts} != {expected}")
+    tuned = meta.latest("dnn").payload.meta["tile_configs"]
+    for d in done:
+        trials = [p for p in probes if p["key"] == d["key"]]
+        best = next(p for p in trials if p["config"] == d["config"])
+        emit({"phase": "tune_problem", "kernel": d["kernel"],
+              "problem": json.loads(d["key"].split("|", 1)[1]),
+              "config": d["config"], "us": d["us"], "trials": len(trials),
+              "smem_bytes": best["smem_bytes"],
+              "smem_budget": best["smem_budget"],
+              "trial_us": {json.dumps(p["config"], sort_keys=True): p["us"]
+                           for p in trials}})
+    gen_art = meta.latest("dnn", lambda a: a.parent is None)
+    summary = {"phase": "tune", "arch": "qwen2-7b", "layers": 28,
+               "dtype": "bfloat16", "accuracy": gen_art.metrics["accuracy"],
+               "pruning": "50 % block mask on lm_head from build_masks; "
+                          "stands in for the PRUNING O-task (LM pruning "
+                          "fine-tunes and waits for the training slice)",
+               "sparsity": masked.metrics["sparsity"], "max_live": max_live,
+               "problems": len(problems),
+               "search_steps": meta.get("tune.result")["search_steps"],
+               "launches": counts, "expected_launches": expected,
+               "wall_s": wall, "peak_mem_gb": peak, "tile_configs": tuned}
+    summary["dispatch"] = _tuned_dispatch(handle, tuned, cache_path)
+    del meta, masked, handle
+    torch.cuda.empty_cache()
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    meta = _tune_flow(cache_path).execute()
+    torch.cuda.synchronize()
+    counts2 = _read_counts()
+    probes2 = meta.trace("tune.probe")
+    if len(probes2) != len(problems) or not all(p.get("cached")
+                                                for p in probes2) \
+            or any(counts2.values()):
+        raise AssertionError(f"phase 8 second run: probes {probes2}, "
+                             f"launches {counts2}")
+    summary["second_run"] = {"cached_probes": len(probes2),
+                             "launches": counts2,
+                             "wall_s": time.perf_counter() - t0}
+    emit(summary)
+    del meta
+    autotune.clear_memory_cache()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def block_map_of(handle):
+    from repro_torch.sparsity.masks import block_map
+    return block_map(handle.masks["lm_head"], 128)
+
+
+def _tuned_dispatch(handle, tuned, cache_path) -> dict:
+    """``tuned_block_sparse_matmul`` on the real masked lm_head with its
+    mask's ``compact_block_index``, ``tuned_flash_attention`` at problem
+    4's shape and ``ops.masked_matmul``: each launches its kernel once, the
+    tuned_* at the tuned config (equal output to a direct launch with it),
+    and matches its plain version."""
+    import torch
+    from repro_torch.kernels import autotune, ops
+    from repro_torch.kernels import block_sparse_matmul as bsmm
+    from repro_torch.kernels import flash_attention as fa
+    cfg = handle.model.cfg
+    g = torch.Generator(device="cuda").manual_seed(5)
+    mask = handle.masks["lm_head"]
+    wm = handle.effective_params().lm_head.detach()
+    x = torch.randn((128, wm.shape[0]), generator=g, device="cuda").to(
+        wm.dtype)
+    kidx = torch.from_numpy(bsmm.compact_block_index(
+        block_map_of(handle))).cuda()
+    q = torch.randn((1, 512, cfg.n_heads, cfg.hd), generator=g,
+                    device="cuda")
+    k = torch.randn((1, 512, cfg.n_kv_heads, cfg.hd), generator=g,
+                    device="cuda")
+    v = torch.randn((1, 512, cfg.n_kv_heads, cfg.hd), generator=g,
+                    device="cuda")
+    worst = {"block_sparse_matmul": {}, "flash_attention": {}}
+    out = {}
+    for name, call, direct, plain, dtype in (
+            ("block_sparse_matmul",
+             lambda: autotune.tuned_block_sparse_matmul(
+                 x, wm, kidx, cache_path=cache_path),
+             lambda c: bsmm.block_sparse_matmul(x, wm, kidx,
+                                                block_m=c["block_m"]),
+             lambda: bsmm.block_sparse_matmul_plain(x, wm, kidx),
+             torch.bfloat16),
+            ("flash_attention",
+             lambda: autotune.tuned_flash_attention(q, k, v,
+                                                    cache_path=cache_path),
+             lambda c: fa.flash_attention(q, k, v, block_q=c["block_q"],
+                                          block_kv=c["block_kv"]),
+             lambda: fa.flash_attention_plain(q, k, v), torch.float32)):
+        cfg = next(c for key, c in tuned.items()
+                   if key.startswith(name + "|"))
+        _zero_counts()
+        got = call()
+        torch.cuda.synchronize()
+        n = _read_counts()[name]
+        if n != 1 or not torch.equal(got, direct(cfg)):
+            raise AssertionError(f"tuned {name}: {n} launches, or not the "
+                                 f"tuned config's output")
+        _compare(name, got, plain(), dtype, worst, "tuned")
+        out[name] = {"config": cfg, "launches": n}
+    _zero_counts()
+    got = ops.masked_matmul(x, wm, mask)
+    torch.cuda.synchronize()
+    n = _read_counts()["block_sparse_matmul"]
+    if n != 1:
+        raise AssertionError(f"ops.masked_matmul: {n} launches")
+    _compare("block_sparse_matmul", got,
+             bsmm.block_sparse_matmul_plain(x, wm, kidx), torch.bfloat16,
+             worst, "masked_matmul")
+    out["masked_matmul"] = {"launches": n}
+    out["max_abs_err"] = worst
+    return out
 
 
 def phase_profile() -> None:
@@ -741,8 +1135,97 @@ def phase_timing(launches: dict) -> list:
                       "dtype": "bfloat16"}))
     rows.append(_flash_decode_row(gen, launches, flush, sdpa_gqa))
     rows.append(_quant_matmul_row(gen, launches, flush))
+    rows.append(_block_sparse_row(launches, flush))
+    rows.append(_flash_attention_row(launches, flush, sdpa_gqa))
     emit({"phase": "timing", "kernels": rows})
     return rows
+
+
+def _block_sparse_row(launches, flush) -> dict:
+    """Problem 3 of phase 8: x (128, 3584) bf16 @ a (3584, 152064) bf16
+    weight under a 50 % block mask (``block_mask``), at each block_m the
+    tuner tries (the row's ``ms`` at the default 128).  Bytes: x, the live
+    w blocks and out once; operations: 2 * 128 * 128 * 128 per live block.
+    Library: ``torch.matmul`` on the masked dense weight."""
+    import torch
+    from repro_torch.kernels import block_sparse_matmul as bsmm
+    from repro_torch.sparsity.masks import block_map, block_mask
+    g = torch.Generator(device="cuda").manual_seed(6)
+    m, k, n = 128, 3584, 152064
+    x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+    w = (0.02 * torch.randn((k, n), generator=g, device="cuda")).to(
+        torch.bfloat16)
+    mask = block_mask(w, 0.5)
+    occ = block_map(mask, 128)
+    wm = (w.float() * mask).to(torch.bfloat16)
+    del w, mask
+    kidx = torch.from_numpy(bsmm.compact_block_index(occ)).cuda()
+    live = int(occ.sum())
+    out = bsmm.block_sparse_matmul(x, wm, kidx)
+    ref = bsmm.block_sparse_matmul_plain(x, wm, kidx)
+    err = float((out.float() - ref.float()).abs().max())
+    nbytes = 2 * m * k + 2 * live * 128 * 128 + 4 * kidx.numel() + 2 * m * n
+    flops = 2 * m * 128 * 128 * live
+    row = _row("block_sparse_matmul",
+               "src/repro_torch/csrc/block_sparse_matmul.cu",
+               "src/repro/kernels/block_sparse_matmul.py:62", launches, err,
+               bf16_tol(ref), lambda: bsmm.block_sparse_matmul(x, wm, kidx),
+               lambda: bsmm.block_sparse_matmul_plain(x, wm, kidx),
+               lambda: torch.matmul(x, wm), nbytes, flops, flush,
+               {"M": m, "K": k, "N": n, "block": 128, "block_m": 128,
+                "live_blocks": live, "max_live": int(kidx.shape[1]),
+                "dtype": "bfloat16"})
+    row["library_note"] = "torch.matmul on the masked dense weight"
+    row["ms_by_block_m"] = {bm: _time_ms(
+        lambda bm=bm: bsmm.block_sparse_matmul(x, wm, kidx, block_m=bm), 20,
+        flush) for bm in (32, 64, 128)}
+    return row
+
+
+def _flash_attention_row(launches, flush, sdpa_gqa) -> dict:
+    """Problem 4 of phase 8: (1, 512) queries and keys, H = 28 over KV = 4,
+    D = 128, fp32, causal, default tiles (128, 128); then Qwen2-7B prefill
+    scale (1, 4096) in bf16, causal.  Bytes: q, k, v and out once;
+    operations: 4 * D * H * the causal pairs, over the fp32 (67 TFLOP/s,
+    CUDA cores) or bf16 (989) peak.  Library:
+    ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device="cuda").manual_seed(7)
+    rows = []
+    for s, dtype, peak in ((512, torch.float32, H100_FP32_FLOPS),
+                           (4096, torch.bfloat16, H100_BF16_FLOPS)):
+        h, kvh, d = 28, 4, 128
+        q = torch.randn((1, s, h, d), generator=g, device="cuda").to(dtype)
+        k = torch.randn((1, s, kvh, d), generator=g, device="cuda").to(dtype)
+        v = torch.randn((1, s, kvh, d), generator=g, device="cuda").to(dtype)
+        out = fa.flash_attention(q, k, v)
+        ref = fa.flash_attention_plain(q, k, v)
+        err = float((out.float() - ref.float()).abs().max())
+        tol = FP32_TOL if dtype == torch.float32 else bf16_tol(ref)
+        del out, ref
+        item = q.element_size()
+        nbytes = item * (2 * q.numel() + k.numel() + v.numel())
+        flops = 4 * d * h * (s * (s + 1) // 2)
+        qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        lib = (lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True, enable_gqa=True)) if sdpa_gqa \
+            else None
+        rows.append(_row(
+            "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:91", launches, err, tol,
+            lambda: fa.flash_attention(q, k, v),
+            lambda: fa.flash_attention_plain(q, k, v), lib, nbytes, flops,
+            flush, {"B": 1, "S": s, "H": h, "KV": kvh, "D": d,
+                    "causal": True, "block_q": 128, "block_kv": 128,
+                    "dtype": str(dtype).removeprefix("torch.")},
+            peak_ops=peak))
+    row, prefill = rows
+    row["prefill_4096"] = {key: prefill[key] for key in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "max_abs_err", "shapes")}
+    return row
 
 
 def _flash_decode_row(gen, launches, flush, sdpa_gqa) -> dict:
@@ -854,7 +1337,7 @@ def _row(name, source, replaces, launches, err, tol, kernel, plain, lib,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,8",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -872,6 +1355,8 @@ def main(argv=None) -> int:
               f"from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    # fp32 products and convolutions in full fp32 on the card, as the
+    # plain versions they are compared with (cuDNN would use TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
@@ -885,7 +1370,13 @@ def main(argv=None) -> int:
     launches = {}
     if 5 in phases:
         launches = phase_serve()
+    tune_launches = phase_tune() if 8 in phases else {}
+    # block_sparse_matmul and flash_attention run on phase 8's path only
+    for name in ("block_sparse_matmul", "flash_attention"):
+        launches[name] = tune_launches.get(name, 0)
     rows = phase_timing(launches) if 6 in phases else []
+    for row in rows:
+        row["tune_launches"] = tune_launches.get(row["name"], 0)
     if 7 in phases:
         phase_profile()
     emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 3)})

@@ -5,8 +5,11 @@
 port's ``state_dict``: nested keys join with ``.``, and the stacked
 ``blocks`` axis splits into ``blocks.{i}.…``.  :func:`cache_from_jax`
 takes a contiguous decode cache (``init_lm_cache``'s ``k``, ``v``,
-``pos``, or one layer's).  bf16 leaves are read through their 16-bit
-patterns, so no bf16 numpy dtype is needed here.
+``pos``, or one layer's).  :func:`bench_params_from_jax` takes the
+parameters of a bench model (``models/cnn.py``: ``{"fc0": {"w", "b"}}``,
+``{"conv0": {"w", "bn": {...}}}``) and keeps their nesting.  bf16 leaves
+are read through their 16-bit patterns, so no bf16 numpy dtype is needed
+here.
 """
 
 from __future__ import annotations
@@ -41,6 +44,15 @@ def params_from_jax(tree) -> dict[str, torch.Tensor]:
 
     walk((), tree)
     return out
+
+
+def bench_params_from_jax(tree):
+    """JAX bench-model parameters (nested dicts of arrays) -> the same
+    nesting of CPU tensors, the port's ``models/cnn.py`` layout (HWIO
+    convolution weights, (in, out) dense weights)."""
+    if isinstance(tree, dict):
+        return {str(k): bench_params_from_jax(v) for k, v in tree.items()}
+    return _tensor(np.asarray(tree))
 
 
 def cache_from_jax(tree) -> dict[str, torch.Tensor | int]:

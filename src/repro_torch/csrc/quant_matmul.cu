@@ -23,10 +23,11 @@
 // does not depend on the k order; there is no split-K across CTAs and no
 // atomic.  The epilogue multiplies in the plain version's order, and the
 // library is built without fast math, so the output is bit-identical to
-// it.  K < 133,143 keeps |acc| <= 127 * 127 * K below 2**31 (the wrapper
-// checks it).  What bounds this simple form: no cp.async/TMA pipeline
-// (loads and products do not overlap) and mma.sync instead of wgmma;
-// both are later work.
+// it.  Any K: the mma carries no .satfinite, so the int32 sum wraps modulo
+// 2**32 as the reference's int32 dot_general does (|acc| can pass 2**31
+// only for K >= 133,143).  What bounds this simple form: no cp.async/TMA
+// pipeline (loads and products do not overlap) and mma.sync instead of
+// wgmma; both are later work.
 
 #include "common.cuh"
 

@@ -30,6 +30,21 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0
 
 
+def _align4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def smem_bytes(g: int, d: int) -> int:
+    """Dynamic shared memory the kernel's launch requests for g query
+    heads per kv head at head_dim d (``Layout`` in ``csrc/flash_decode.cu``,
+    whose ``flash_decode_smem_bytes`` exports the same number): the fixed
+    64-slot tile's q, acc, K, V, scores and row state, in floats."""
+    nt = 64
+    floats = (2 * _align4(g * d) + _align4(nt * (d + 1)) + _align4(nt * d)
+              + _align4(g * nt) + 3 * _align4(g) + nt)
+    return 4 * floats
+
+
 def flash_decode_plain(q, k, v, mask):
     """The masked one-token attention of the model layer."""
     return L._masked_decode_attention(q, k, v, mask.bool(), q.shape[2])
@@ -90,7 +105,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, _, h, d = q.shape
     _, cache_len, kvh, _ = k.shape
     lib = _lib()
-    if lib.flash_decode_smem_bytes(h // kvh, d) > SMEM_LIMIT:
+    if smem_bytes(h // kvh, d) > SMEM_LIMIT:
         raise ValueError(f"flash_decode: g={h // kvh}, D={d} does not fit "
                          f"in shared memory")
     mask_u8 = mask.view(torch.uint8) if mask.dtype == torch.bool else mask

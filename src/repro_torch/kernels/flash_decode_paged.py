@@ -30,6 +30,22 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0
 
 
+def _align4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def smem_bytes(g: int, d: int, page_size: int) -> int:
+    """Dynamic shared memory the kernel's launch requests (``Layout`` in
+    ``csrc/flash_decode_paged.cu``, whose ``flash_decode_paged_smem_bytes``
+    exports the same number): a tile of whole pages covering 64 slots (one
+    page when pages are larger), its K, V and scores, q, acc, row state
+    and per-slot liveness and offsets, in floats."""
+    nt = (1 if page_size >= 64 else 64 // page_size) * page_size
+    floats = (2 * _align4(g * d) + _align4(nt * (d + 1)) + _align4(nt * d)
+              + _align4(g * nt) + 3 * _align4(g) + _align4(nt) + 2 * nt)
+    return 4 * floats
+
+
 def flash_decode_paged_plain(q, k_pages, v_pages, block_tables, mask):
     """Gather each request's pages through the block table into contiguous
     K/V and run the masked one-token attention of the model layer."""
@@ -104,7 +120,7 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     r, _, h, d = q.shape
     _, ps, kvh, _ = k_pages.shape
     lib = _lib()
-    if lib.flash_decode_paged_smem_bytes(h // kvh, d, ps) > SMEM_LIMIT:
+    if smem_bytes(h // kvh, d, ps) > SMEM_LIMIT:
         raise ValueError(f"flash_decode_paged: g={h // kvh}, D={d}, "
                          f"page_size={ps} does not fit in shared memory")
     mask_u8 = mask.view(torch.uint8) if mask.dtype == torch.bool else mask

@@ -30,6 +30,22 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0
 
 
+def _align4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def smem_bytes(block_q: int, g: int, d: int, page_size: int) -> int:
+    """Dynamic shared memory the kernel's launch requests for a q tile of
+    ``block_q`` positions (``Layout`` in ``csrc/flash_prefill_ragged.cu``,
+    whose ``flash_prefill_ragged_smem_bytes`` exports the same number):
+    the block_q * g rows' acc, scores and state, and one page's K
+    (transposed, slots padded to 16) and V, in floats."""
+    rows, ps_pad = block_q * g, -(-page_size // 16) * 16
+    floats = (_align4(rows * d) + _align4(d * ps_pad) + _align4(page_size * d)
+              + _align4(rows * page_size) + 3 * _align4(rows))
+    return 4 * floats
+
+
 def flash_prefill_ragged_plain(q, k_pages, v_pages, block_tables, offsets,
                                lens):
     """Gather each request's pages into contiguous K/V, run the layer's
@@ -115,11 +131,9 @@ def flash_prefill_ragged(q: torch.Tensor, k_pages: torch.Tensor,
     _, ps, kvh, _ = k_pages.shape
     lib = _lib()
     bq = max(1, min(block_q, s))
-    while bq > 1 and lib.flash_prefill_ragged_smem_bytes(
-            bq, h // kvh, d, ps) > SMEM_LIMIT:
+    while bq > 1 and smem_bytes(bq, h // kvh, d, ps) > SMEM_LIMIT:
         bq //= 2
-    if lib.flash_prefill_ragged_smem_bytes(bq, h // kvh, d, ps) \
-            > SMEM_LIMIT:
+    if smem_bytes(bq, h // kvh, d, ps) > SMEM_LIMIT:
         raise ValueError(f"flash_prefill_ragged: one query row of g="
                          f"{h // kvh}, D={d}, page_size={ps} does not fit "
                          f"in shared memory")

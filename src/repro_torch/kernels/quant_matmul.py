@@ -10,9 +10,10 @@ package runs it outside its ``pallas_call``; the weight is quantized on
 every call.  The kernel (``csrc/quant_matmul.cu``) replaces the Pallas TPU
 kernel of the JAX package's ``kernels/quant_matmul.py``.
 
-No overflow: ``|acc| <= 127 * 127 * K`` stays below 2**31 for
-K < 133,143 (the largest K on the serving path is Qwen2-7B's d_ff,
-18,944); larger K raises.
+Any K: the int32 sum wraps modulo 2**32 as the JAX package's int32
+``dot_general`` does (two's complement, no saturation).  ``|acc| <=
+127 * 127 * K`` can pass 2**31 only for K >= 133,143 (the TUNE problem
+of Qwen2-7B's embedding has K = 152,064).
 
 A CPU tensor goes to :func:`quant_matmul_plain`; a CUDA tensor goes to
 the kernel or raises.
@@ -27,7 +28,9 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.quant.policy import quantize_int8
 
-K_LIMIT = 133_143            # 127 * 127 * K < 2**31
+# shared memory of one CTA: two 64 x 64 int8 slabs, rows padded to 80
+# bytes (static in csrc/quant_matmul.cu; the launch takes no tile config)
+SMEM_BYTES = 2 * 64 * 80
 
 # kernel launches since the count was last set to 0
 launches = 0
@@ -41,12 +44,19 @@ def quantize_operands(x: torch.Tensor, w: torch.Tensor):
     return xq, xs, wq.t().contiguous(), ws
 
 
+def wrap_int32(acc: torch.Tensor) -> torch.Tensor:
+    """An exact integer sum held in float64, wrapped to int32's range as
+    two's-complement int32 addition wraps it (values stay float64)."""
+    return torch.remainder(acc + 2.0 ** 31, 2.0 ** 32) - 2.0 ** 31
+
+
 def int8_matmul_plain(xq, xs, wq, ws) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch on any device: the int8
-    products summed in float64, which holds every partial sum exactly
-    (|acc| < 2**31 < 2**53), so the sum equals the int32 one; then the
-    same rounding to fp32 and the same two products."""
-    acc = torch.matmul(xq.double(), wq.double().t())
+    products summed in float64, which holds every partial sum exactly for
+    any K up to 5.5e11 (127 * 127 * K < 2**53), then wrapped to int32 as
+    the kernel's int32 sum wraps; then the same rounding to fp32 and the
+    same two products."""
+    acc = wrap_int32(torch.matmul(xq.double(), wq.double().t()))
     return (acc.float() * xs) * ws
 
 
@@ -98,9 +108,6 @@ def int8_matmul(xq, xs, wq, ws) -> torch.Tensor:
                              f"{t.dtype} {tuple(t.shape)}")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    if k >= K_LIMIT:
-        raise ValueError(f"K = {k} could overflow the int32 sum "
-                         f"(needs K < {K_LIMIT})")
     out = torch.empty((m, n), dtype=torch.float32, device=xq.device)
     err = _lib().quant_matmul_launch(
         _build.ptr(xq), _build.ptr(xs), _build.ptr(wq), _build.ptr(ws),

@@ -75,6 +75,42 @@ class LM(nn.Module):
             self.lm_head = L._param(head)
 
 
+    def param_tree(self) -> dict:
+        """The JAX package's parameter pytree of this model, in its order
+        (``embed``, ``blocks``, ``final_norm``, ``lm_head``), for the design
+        flow's path-keyed view (``sparsity/masks.py::flatten_params``).
+        ``blocks`` holds one stacked leaf per block parameter, (L, ...) in
+        the JAX layout and keys sorted as the JAX stack sorts them.  A
+        stacked matrix is a shape-only ``meta`` tensor, so the view copies
+        no weight; the design flow reads only the shape of a 3-D leaf.  A
+        stacked vector (biases, norm scales: L x d, a few hundred KB) is
+        a real copy, since it is 2-D there and may be pruned like any
+        2-D weight.  The other leaves are this module's own parameters."""
+        stacked: dict = {}
+        names = [name for name, _ in self.blocks[0].named_parameters()]
+        for name in names:
+            node = stacked
+            *parents, leaf = name.split(".")
+            for part in parents:
+                node = node.setdefault(part, {})
+            layers = [blk.get_parameter(name) for blk in self.blocks]
+            t = layers[0]
+            node[leaf] = (torch.stack([p.detach() for p in layers])
+                          if t.ndim == 1 else
+                          torch.empty((len(layers), *t.shape),
+                                      dtype=t.dtype, device="meta"))
+        tree = {"embed": self.embed, "blocks": _sorted_tree(stacked),
+                "final_norm": dict(self.final_norm.named_parameters())}
+        if hasattr(self, "lm_head"):
+            tree["lm_head"] = self.lm_head
+        return tree
+
+
+def _sorted_tree(node: dict) -> dict:
+    return {k: _sorted_tree(v) if isinstance(v, dict) else v
+            for k, v in sorted(node.items())}
+
+
 def init_lm(gen: torch.Generator, cfg: ArchConfig) -> LM:
     """Randomly initialised parameters on ``gen``'s device."""
     return LM(cfg, gen.device, gen)

@@ -85,7 +85,8 @@ def test_quant_matmul_plain_equals_pallas_kernel(m, k, n):
 
 def test_quantize_operands_layout_and_int32_bound():
     """The kernel's operand layout — wq (N, K), k contiguous — and the
-    overflow bound the wrapper states: 127 * 127 * K < 2**31."""
+    int32 bound: past 2**31 the sum wraps as numpy's (and XLA's) int32
+    sum wraps, for a K (140,000) that passes 127 * 127 * K >= 2**31."""
     x = torch.randn((5, 24), generator=torch.Generator().manual_seed(0))
     w = torch.randn((24, 7), generator=torch.Generator().manual_seed(1))
     xq, xs, wq, ws = qmm.quantize_operands(x, w)
@@ -94,7 +95,16 @@ def test_quantize_operands_layout_and_int32_bound():
     assert wq.is_contiguous() and wq.dtype == torch.int8
     assert torch.equal(qmm.int8_matmul_plain(xq, xs, wq, ws),
                        qmm.quant_matmul_plain(x, w))
-    assert 127 * 127 * (qmm.K_LIMIT - 1) < 2**31
+    k = 140_000
+    sign = np.where(np.arange(k) % 7 == 0, -1, 1).astype(np.int8)
+    xq8 = np.stack([np.full(k, 127, np.int8), 127 * sign])
+    wq8 = np.stack([np.full(k, 127, np.int8), np.full(k, -127, np.int8)])
+    exact = xq8.astype(np.int64) @ wq8.astype(np.int64).T
+    assert np.abs(exact).max() >= 2**31
+    want = (xq8.astype(np.int32) @ wq8.astype(np.int32).T).astype(np.float32)
+    got = qmm.int8_matmul_plain(torch.from_numpy(xq8), torch.ones((2, 1)),
+                                torch.from_numpy(wq8), torch.ones((1, 2)))
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("axis", [0, 1])
