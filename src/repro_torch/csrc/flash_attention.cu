@@ -35,9 +35,25 @@
 // (block_q x (D + 1)), P (block_q x (block_kv + 1)) and the K/V tile
 // (block_kv x padded D) — the autotuner's budget filters (block_q,
 // block_kv) by exactly this number.  fp32 FFMA for both dtypes: no TF32,
-// no bf16 rounding of P.  A later PR moves both products onto tensor
-// cores (mma/wgmma) with TMA-fed tiles.
+// no bf16 rounding of P.
+//
+// bf16 variant (flash_attention_tc_launch, for bf16 q, k, v at D = 64 or
+// 128; the wrapper's variant() picks it): the tensor-core main loop of
+// attention_tc.cuh — wgmma for both products, P in bf16 — with Q, K and V
+// tiles brought by TMA from tensor maps over the native (B * S, heads * D)
+// views (no transpose, no pad copy): a box of 64 columns at column
+// head * D + 64 c, of block_q query rows or block_kv key rows.  GQA reads
+// kv head h / (H / KV); kv tiles above the diagonal or wholly outside the
+// window are never loaded; keys past Skv (the next batch's rows, or TMA's
+// zero fill past the end) and ragged q rows are masked or left unwritten
+// in place.  Under causal, blockIdx.x walks the q tiles in reverse, so
+// the CTAs with the most kv tiles start first and the grid's tail is
+// short.  At (1, 4096, 28 / 4, 128) causal the products are 120 GFLOP,
+// so operations bound it.
 
+#include <cuda.h>
+
+#include "attention_tc.cuh"
 #include "common.cuh"
 
 namespace {
@@ -298,5 +314,219 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (dtype == kBFloat16)
     return launch_d<__nv_bfloat16>(D, block_q, q, k, v, out, B, Sq, Skv, H,
                                    KV, block_kv, causal, window, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// ------------------------------------------------- bf16 tensor-core variant
+namespace {
+
+using bf16 = __nv_bfloat16;
+using repro::tc::Bars;
+using repro::tc::Tile;
+
+struct TcMask {
+  int q0, bq, bkv, skv, causal, window;
+  __device__ bool visible(int row, int key) const {
+    const int qpos = q0 + row;
+    return key < skv && (!causal || qpos >= key) &&
+           (window == 0 || qpos - key < window);
+  }
+  __device__ bool full(int t) const {
+    const int lo = t * bkv, hi = lo + bkv - 1;
+    return hi < skv && (!causal || q0 >= hi) &&
+           (window == 0 || q0 + bq - 1 - lo < window);
+  }
+};
+
+struct TcOut {
+  bf16* base;     // row q0 of (b, h)
+  int rows;       // Sq - q0
+  size_t stride;  // H * D
+  __device__ bf16* row(int r) const {
+    return r < rows ? base + (size_t)r * stride : nullptr;
+  }
+  __device__ bool zero(int) const { return false; }
+};
+
+template <int BQ, int BKV, int D>
+__global__ void __launch_bounds__(Tile<BQ, BKV, D>::kThreads, 1)
+    flash_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
+                              const __grid_constant__ CUtensorMap k_map,
+                              const __grid_constant__ CUtensorMap v_map,
+                              bf16* __restrict__ out, int Sq, int Skv, int H,
+                              int KV, int causal, int window,
+                              float scale_log2) {
+  using T = Tile<BQ, BKV, D>;
+  extern __shared__ unsigned char tc_smem[];
+  uint8_t* smem = repro::tc::setup<BQ, BKV, D>(tc_smem, 1);
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z, kh = h / (H / KV);
+  const int q0 = qt * BQ;
+  const int n_kv = (Skv + BKV - 1) / BKV;
+  const int t_end = causal ? min(n_kv, (q0 + BQ - 1) / BKV + 1) : n_kv;
+  const int t_begin =
+      (window > 0 && q0 - window + 1 > 0) ? (q0 - window + 1) / BKV : 0;
+  const int n_tiles = max(0, t_end - t_begin);
+  // warp-uniform (broadcast from lane 0), so the compiler sees the role
+  // split below as no divergence around the consumers' wgmma
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+
+  if (warp >= T::kNC * 4) {  // producer: one thread issues every TMA load
+    // with two consumer warpgroups: 168 - 24 registers a producer thread
+    // go to the consumers (168 -> 240), which then hold S, P and O of a
+    // 128-key tile without spilling
+    if constexpr (T::kNC == 2) repro::tc::setmaxnreg_dec<24>();
+    if (threadIdx.x % 128 != 0 || n_tiles == 0) return;
+    Bars* bars = reinterpret_cast<Bars*>(smem + T::kBars);
+    const uint32_t base = repro::tc::smem_u32(smem);
+    repro::tc::mbar_expect_tx(&bars->q_full, T::kQBytes);
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c)
+      repro::tc::tma_load_2d(base + T::kQ + c * BQ * 128, &q_map,
+                             &bars->q_full, h * D + 64 * c, b * Sq + q0);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % T::kStages, k0 = b * Skv + (t_begin + i) * BKV;
+      const uint32_t ph = ((i / T::kStages) & 1) ^ 1;
+      repro::tc::mbar_wait(&bars->k_empty[st], ph);
+      repro::tc::mbar_expect_tx(&bars->k_full[st], T::kKVBytes);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c)
+        repro::tc::tma_load_2d(base + T::kK + st * T::kKVBytes + c * BKV * 128,
+                               &k_map, &bars->k_full[st], kh * D + 64 * c,
+                               k0);
+      repro::tc::mbar_wait(&bars->v_empty[st], ph);
+      repro::tc::mbar_expect_tx(&bars->v_full[st], T::kKVBytes);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c)
+        repro::tc::tma_load_2d(base + T::kV + st * T::kKVBytes + c * BKV * 128,
+                               &v_map, &bars->v_full[st], kh * D + 64 * c,
+                               k0);
+    }
+  } else {
+    if constexpr (T::kNC == 2) repro::tc::setmaxnreg_inc<240>();
+    const TcMask mask{q0, BQ, BKV, Skv, causal, window};
+    const TcOut o{out + ((size_t)b * Sq + q0) * H * D + (size_t)h * D,
+                  Sq - q0, (size_t)H * D};
+    repro::tc::consume<BQ, BKV, D>(smem, warp / 4, t_begin, n_tiles,
+                                      scale_log2, mask, o);
+  }
+}
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime (no
+// link against libcuda)
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A tensor map over a row-major (rows, cols) bf16 matrix: boxes of 64
+// columns (128 bytes) by box_rows rows, 128-byte swizzle, zeros past the
+// edges.
+int encode(CUtensorMap* map, const void* ptr, long long rows,
+           long long cols, int box_rows) {
+  const EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int BQ, int BKV, int D>
+int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
+              int Sq, int Skv, int H, int KV, int causal, int window,
+              float scale, cudaStream_t stream) {
+  CUtensorMap qm, km, vm;
+  int e = encode(&qm, q, (long long)B * Sq, (long long)H * D, BQ);
+  if (e == 0) e = encode(&km, k, (long long)B * Skv, (long long)KV * D, BKV);
+  if (e == 0) e = encode(&vm, v, (long long)B * Skv, (long long)KV * D, BKV);
+  if (e != 0) return e;
+  const size_t smem = (size_t)repro::tc::smem_bytes(BQ, BKV, D);
+  auto kernel = flash_attention_tc_kernel<BQ, BKV, D>;
+  const cudaError_t a = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (a != cudaSuccess) return (int)a;
+  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  kernel<<<grid, Tile<BQ, BKV, D>::kThreads, smem, stream>>>(
+      qm, km, vm, static_cast<bf16*>(out), Sq, Skv, H, KV, causal, window,
+      scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_tc_tiles(int bq, int bkv, const void* q, const void* k,
+                    const void* v, void* out, int B, int Sq, int Skv, int H,
+                    int KV, int causal, int window, float scale,
+                    cudaStream_t s) {
+  if (bq == 64 && bkv == 64)
+    return launch_tc<64, 64, D>(q, k, v, out, B, Sq, Skv, H, KV, causal,
+                                window, scale, s);
+  if (bq == 64 && bkv == 128)
+    return launch_tc<64, 128, D>(q, k, v, out, B, Sq, Skv, H, KV, causal,
+                                 window, scale, s);
+  if (bq == 128 && bkv == 64)
+    return launch_tc<128, 64, D>(q, k, v, out, B, Sq, Skv, H, KV, causal,
+                                 window, scale, s);
+  if (bq == 128 && bkv == 128)
+    return launch_tc<128, 128, D>(q, k, v, out, B, Sq, Skv, H, KV, causal,
+                                  window, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// Dynamic shared memory of one CTA of the bf16 variant:
+// kernels/attention_tc.py::smem_bytes mirrors it and the autotuner
+// filters on it.
+extern "C" long long flash_attention_tc_smem_bytes(int block_q, int block_kv,
+                                                   int D) {
+  return repro::tc::smem_bytes(block_q, block_kv, D);
+}
+
+// bf16 q, k, v at D = 64 or 128; block_q and block_kv 64 or 128; every
+// base 16-byte aligned (TMA).
+extern "C" int flash_attention_tc_launch(const void* q, const void* k,
+                                         const void* v, void* out, int B,
+                                         int Sq, int Skv, int H, int KV,
+                                         int D, int block_q, int block_kv,
+                                         int causal, int window, float scale,
+                                         void* stream) {
+  if (B < 1 || Sq < 1 || Skv < 1 || KV < 1 || H % KV != 0 || window < 0 ||
+      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return launch_tc_tiles<64>(block_q, block_kv, q, k, v, out, B, Sq, Skv,
+                               H, KV, causal, window, scale, s);
+  if (D == 128)
+    return launch_tc_tiles<128>(block_q, block_kv, q, k, v, out, B, Sq, Skv,
+                                H, KV, causal, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -28,9 +28,25 @@
 // fully masked rows and idle slots (lens == 0) at l = 0, hence output 0,
 // instead of a uniform average.  K is held transposed so a thread scoring
 // its row reads 16 slots of one d with four float4 broadcasts; the PV
-// update works on float4 columns.  A later PR moves both products onto
-// wgmma tensor cores with TMA-fed pages.
+// update works on float4 columns.
+//
+// bf16 variant (flash_prefill_ragged_tc_launch, for bf16 q and pages at
+// D = 64 or 128; the wrapper's variant() picks it): the tensor-core main
+// loop of attention_tc.cuh.  One CTA per (q tile of block_q suffix
+// positions, QUERY head, request): no g-fold — a 512-token prefill is
+// bound by operations (about 15 GFLOP against 67 MB), and g = 7 folded
+// rows would not fill 64-row wgmma tiles; one request's K/V of one kv
+// head (at most a few hundred KB) stays in L2 across its g query heads.
+// The producer warpgroup gathers Q rows and 64-key K/V tiles through the
+// block table with 16-byte cp.async into the swizzled layout (any page
+// size: a tile spans 64 / page_size pages or part of one), zero-filling
+// slots past the tile's causal frontier; the barriers complete on
+// cp.async.mbarrier.arrive.  q tiles past lens[r] and idle slots do no
+// work, kv tiles past the frontier are never visited, rows at or past
+// lens[r] are written 0, and q tiles run last to first (most work
+// first).
 
+#include "attention_tc.cuh"
 #include "common.cuh"
 
 namespace {
@@ -256,5 +272,175 @@ extern "C" int flash_prefill_ragged_launch(
     return launch<__nv_bfloat16, float>(q, k_pages, v_pages, block_tables,
                                         offsets, lens, out, R, S, H, KV, D,
                                         ps, M, block_q, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// ------------------------------------------------- bf16 tensor-core variant
+namespace {
+
+using bf16 = __nv_bfloat16;
+using repro::tc::Bars;
+using repro::tc::Tile;
+
+constexpr int kTcKV = 64;  // keys per kv tile
+
+// Query i of request r sees slot j iff j <= offsets[r] + i and
+// i < lens[r] (models/layers.py::ragged_prefill_attention_mask).
+struct TcMask {
+  int q0, off, len;
+  __device__ bool visible(int row, int key) const {
+    const int qrel = q0 + row;
+    return key <= off + qrel && qrel < len;
+  }
+  // every row of the tile sees the whole kv tile (dead rows are zeroed
+  // on output whatever they compute)
+  __device__ bool full(int t) const {
+    return t * kTcKV + kTcKV - 1 <= off + q0;
+  }
+};
+
+struct TcOut {
+  bf16* base;     // row q0 of (r, h)
+  int rows;       // S - q0
+  int live;       // lens[r] - q0
+  size_t stride;  // H * D
+  __device__ bf16* row(int i) const {
+    return i < rows ? base + (size_t)i * stride : nullptr;
+  }
+  __device__ bool zero(int i) const { return i >= live; }
+};
+
+template <int BQ, int D>
+__global__ void __launch_bounds__(Tile<BQ, kTcKV, D>::kThreads, 1)
+    ragged_prefill_tc_kernel(const bf16* __restrict__ q,
+                             const bf16* __restrict__ k_pages,
+                             const bf16* __restrict__ v_pages,
+                             const int* __restrict__ block_tables,
+                             const int* __restrict__ offsets,
+                             const int* __restrict__ lens,
+                             bf16* __restrict__ out, int S, int H, int KV,
+                             int ps, int M, float scale_log2) {
+  using T = Tile<BQ, kTcKV, D>;
+  extern __shared__ unsigned char tc_smem[];
+  uint8_t* smem = repro::tc::setup<BQ, kTcKV, D>(tc_smem, 128);
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y, r = blockIdx.z, kh = h / (H / KV);
+  const int off = offsets[r], len = lens[r], q0 = qt * BQ;
+  const int q_end = min(min(q0 + BQ, S), len);   // live rows: q0 .. q_end-1
+  const int kv_last = off + q_end - 1;           // the tile's causal frontier
+  const int n_tiles = q_end > q0 ? kv_last / kTcKV + 1 : 0;
+  // warp-uniform (broadcast from lane 0), so the compiler sees the role
+  // split below as no divergence around the consumers' wgmma
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+
+  if (warp >= T::kNC * 4) {  // producer warpgroup: gathers with cp.async
+    if (n_tiles == 0) return;
+    Bars* bars = reinterpret_cast<Bars*>(smem + T::kBars);
+    const uint32_t base = repro::tc::smem_u32(smem);
+    // this thread copies 16-byte chunk c of rows j0, j0 + kStep, ... of
+    // the Q tile and of each kv tile; a row of zeros reads nothing
+    constexpr int kChunks = D / 8, kStep = 128 / kChunks;
+    constexpr int kRows = kTcKV / kStep;
+    const int pt = threadIdx.x - T::kNC * 128;
+    const int c = pt % kChunks, j0 = pt / kChunks;
+    const size_t q_row = (size_t)H * D, kv_row = (size_t)KV * D;
+    const bf16* qb = q + ((size_t)r * S * H + h) * D + 8 * c;
+    for (int j = j0; j < BQ; j += kStep) {
+      const bool live = q0 + j < q_end;
+      repro::tc::cp_async16(base + T::kQ + repro::tc::swz(BQ, j, c),
+                            qb + (live ? (size_t)(q0 + j) * q_row : 0),
+                            live);
+    }
+    repro::tc::cp_async_arrive(&bars->q_full);
+    const int* bt = block_tables + (size_t)r * M;
+    const size_t head = (size_t)kh * D + 8 * c;
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % T::kStages;
+      const uint32_t ph = ((i / T::kStages) & 1) ^ 1;
+      // element offset of each row in a page pool (K and V alike), or -1
+      // past the frontier: computed before the wait, used twice
+      long long row_off[kRows];
+#pragma unroll
+      for (int u = 0; u < kRows; ++u) {
+        const int pos = i * kTcKV + j0 + kStep * u, blk = pos / ps;
+        row_off[u] = (pos > kv_last || blk >= M)
+                         ? -1
+                         : ((long long)bt[blk] * ps + (pos - blk * ps)) *
+                                   (long long)kv_row + (long long)head;
+      }
+      const uint32_t k_dst = base + T::kK + st * T::kKVBytes;
+      const uint32_t v_dst = base + T::kV + st * T::kKVBytes;
+      repro::tc::mbar_wait(&bars->k_empty[st], ph);
+#pragma unroll
+      for (int u = 0; u < kRows; ++u)
+        repro::tc::cp_async16(k_dst + repro::tc::swz(kTcKV, j0 + kStep * u, c),
+                              k_pages + (row_off[u] < 0 ? 0 : row_off[u]),
+                              row_off[u] >= 0);
+      repro::tc::cp_async_arrive(&bars->k_full[st]);
+      repro::tc::mbar_wait(&bars->v_empty[st], ph);
+#pragma unroll
+      for (int u = 0; u < kRows; ++u)
+        repro::tc::cp_async16(v_dst + repro::tc::swz(kTcKV, j0 + kStep * u, c),
+                              v_pages + (row_off[u] < 0 ? 0 : row_off[u]),
+                              row_off[u] >= 0);
+      repro::tc::cp_async_arrive(&bars->v_full[st]);
+    }
+    repro::tc::cp_async_wait_all();
+  } else {
+    const TcOut o{out + ((size_t)r * S + q0) * H * D + (size_t)h * D, S - q0,
+                  len - q0, (size_t)H * D};
+    repro::tc::consume<BQ, kTcKV, D>(smem, warp / 4, 0, n_tiles, scale_log2,
+                                     TcMask{q0, off, len}, o);
+  }
+}
+
+template <int BQ, int D>
+int launch_tc(const void* q, const void* kp, const void* vp, const int* bt,
+              const int* offsets, const int* lens, void* out, int R, int S,
+              int H, int KV, int ps, int M, float scale,
+              cudaStream_t stream) {
+  const size_t smem = (size_t)repro::tc::smem_bytes(BQ, kTcKV, D);
+  auto kernel = ragged_prefill_tc_kernel<BQ, D>;
+  const cudaError_t a = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (a != cudaSuccess) return (int)a;
+  const dim3 grid((S + BQ - 1) / BQ, H, R);
+  kernel<<<grid, Tile<BQ, kTcKV, D>::kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(kp),
+      static_cast<const bf16*>(vp), bt, offsets, lens,
+      static_cast<bf16*>(out), S, H, KV, ps, M,
+      scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Dynamic shared memory of one CTA of the bf16 variant (64-key kv tiles):
+// the wrapper's smem_bytes_tc mirrors it.
+extern "C" long long flash_prefill_ragged_tc_smem_bytes(int block_q, int D) {
+  return repro::tc::smem_bytes(block_q, kTcKV, D);
+}
+
+// bf16 q and pages at D = 64 or 128, block_q 64 or 128; every base
+// 16-byte aligned (16-byte cp.async).
+extern "C" int flash_prefill_ragged_tc_launch(
+    const void* q, const void* k_pages, const void* v_pages,
+    const int* block_tables, const int* offsets, const int* lens, void* out,
+    int R, int S, int H, int KV, int D, int ps, int M, int block_q,
+    float scale, void* stream) {
+  if (R < 1 || S < 1 || KV < 1 || H % KV != 0 || ps < 1 || M < 1 ||
+      ((uintptr_t)q | (uintptr_t)k_pages | (uintptr_t)v_pages |
+       (uintptr_t)out) % 16)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_FPR_TC(BQ, DD)                                                 \
+  if (block_q == BQ && D == DD)                                              \
+    return launch_tc<BQ, DD>(q, k_pages, v_pages, block_tables, offsets,     \
+                             lens, out, R, S, H, KV, ps, M, scale, s);
+  REPRO_FPR_TC(64, 64)
+  REPRO_FPR_TC(64, 128)
+  REPRO_FPR_TC(128, 64)
+  REPRO_FPR_TC(128, 128)
+#undef REPRO_FPR_TC
   return (int)cudaErrorInvalidValue;
 }

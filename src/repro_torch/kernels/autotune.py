@@ -58,6 +58,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.search import SearchResult, exhaustive_search
+from repro_torch.kernels import attention_tc as tc
 from repro_torch.kernels import block_sparse_matmul as bsmm
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
@@ -257,17 +258,31 @@ def _pj(problem: dict[str, Any]) -> str:
 
 
 # flash attention ------------------------------------------------------------
+def _tc_axis(default: int) -> tuple[int, ...]:
+    """The tensor-core variant's tiles, the kernel default first (a
+    default it does not take maps onto one of them and stands for it)."""
+    return (default,) + tuple(t for t in tc.TILES if t != default)
+
+
 def _fa_candidates(problem: dict[str, Any]
                    ) -> list[tuple[dict[str, int], int]]:
+    d, dtype = problem["d"], problem["dtype"]
+    var = tc.variant(dtype, dtype, d)
+    if var == "tc":
+        q_axis, kv_axis = _tc_axis(fa.BQ), _tc_axis(fa.BKV)
+    else:
+        q_axis, kv_axis = _axis(fa.BQ), _axis(fa.BKV)
     out, seen = [], set()
-    for bq in _axis(fa.BQ):
-        for bkv in _axis(fa.BKV):
-            eff = fa.effective_tiles(bq, bkv, problem["sq"], problem["skv"])
+    for bq in q_axis:
+        for bkv in kv_axis:
+            eff = fa.effective_tiles(bq, bkv, problem["sq"], problem["skv"],
+                                     var)
             if eff in seen:     # clamped duplicates run the same launch
                 continue
             seen.add(eff)
-            out.append(({"block_q": bq, "block_kv": bkv},
-                        fa.smem_bytes(*eff, problem["d"], problem["dtype"])))
+            smem = tc.smem_bytes(*eff, d) if var == "tc" \
+                else fa.smem_bytes(*eff, d, dtype)
+            out.append(({"block_q": bq, "block_kv": bkv}, smem))
     return out
 
 
@@ -378,16 +393,21 @@ def _fpr_candidates(problem: dict[str, Any]
                     ) -> list[tuple[dict[str, int], int]]:
     # block_q tiles the suffix-query axis; the kv axis is walked page by
     # page (the pool's page size is part of the problem).  The wrapper
-    # clamps block_q to the suffix length, so duplicates collapse.
+    # clamps block_q to the suffix length, so duplicates collapse.  The
+    # tensor-core variant takes block_q 64 or 128 (the default 32 runs 64).
     g = problem["h"] // problem["kv_heads"]
+    d, dtype = problem["d"], problem["dtype"]
+    on_tc = tc.variant(dtype, dtype, d) == "tc"
     out, seen = [], set()
-    for bq in _axis(fpr.BQ, (8, 16)):
-        eff = min(bq, problem["s"])
+    for bq in _tc_axis(fpr.BQ) if on_tc else _axis(fpr.BQ, (8, 16)):
+        eff = fpr.effective_block_q(bq, problem["s"], "tc", g, d,
+                                    problem["page_size"]) if on_tc \
+            else min(bq, problem["s"])
         if eff in seen:
             continue
         seen.add(eff)
-        out.append(({"block_q": bq}, fpr.smem_bytes(
-            eff, g, problem["d"], problem["page_size"])))
+        out.append(({"block_q": bq}, fpr.smem_bytes_tc(eff, d) if on_tc
+                    else fpr.smem_bytes(eff, g, d, problem["page_size"])))
     return out
 
 

@@ -12,6 +12,14 @@ package's ``kernels/flash_attention.py``.  A query row that sees no key
 at all (possible only when Sq exceeds Skv) is left undefined, as it is
 between the JAX kernel and its oracle.
 
+Two variants, picked by ``attention_tc.variant`` from the dtypes and D:
+bf16 q, k and v at D = 64 or 128 take the tensor-core kernel (``"tc"``:
+wgmma products fed by TMA, P rounded to bf16, tiles of 64 or 128 rows);
+every other input (fp32) takes the fp32 CUDA-core kernel (``"ffma"``).
+``launches`` counts every launch, ``launches_tc`` those of the
+tensor-core variant, and ``last_launch`` holds the variant and tiles the
+last launch ran.
+
 A CPU tensor goes to :func:`flash_attention_plain`; a CUDA tensor goes to
 the kernel or raises.
 """
@@ -24,6 +32,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import attention_tc as tc
 
 NEG_INF = -1e30
 BQ, BKV = 128, 128
@@ -32,19 +41,27 @@ HEAD_DIMS = (64, 128)            # head_dim values the kernel is built for
 SMEM_LIMIT = 232_448             # dynamic shared memory a CTA may use (H100)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# kernel launches since the count was last set to 0
+# kernel launches since the counts were last set to 0: all, and those of
+# the tensor-core variant
 launches = 0
+launches_tc = 0
+last_launch: dict = {}
 
 
 def effective_tiles(block_q: int | None, block_kv: int | None, sq: int,
-                    skv: int) -> tuple[int, int]:
+                    skv: int, variant: str = "ffma") -> tuple[int, int]:
     """The tiles a launch runs with: as in the JAX package each is clamped
     to its sequence, here to the smallest tile the kernel takes that
-    covers it (q tiles of 32 to 256 rows, kv tiles a multiple of 32)."""
+    covers it (q tiles of 32 to 256 rows, kv tiles a multiple of 32).  The
+    ``"tc"`` variant takes 64 or 128 for each: a request maps to the
+    nearer (32 to 64, 256 to 128), and to 64 where that covers the
+    sequence."""
     bq, bkv = block_q or BQ, block_kv or BKV
     if bq not in Q_TILES or bkv < 32 or bkv % 32:
         raise ValueError(f"flash_attention: block_q must be one of {Q_TILES} "
                          f"and block_kv a multiple of 32, got {bq} / {bkv}")
+    if variant == "tc":
+        return tc.tile(bq, sq), tc.tile(bkv, skv)
     cover_q = next(t for t in Q_TILES if t >= min(sq, Q_TILES[-1]))
     return min(bq, cover_q), min(bkv, -(-skv // 32) * 32)
 
@@ -93,6 +110,13 @@ def _lib() -> ctypes.CDLL:
         sm = lib.flash_attention_smem_bytes
         sm.argtypes = [ctypes.c_int] * 4
         sm.restype = ctypes.c_longlong
+        tc = lib.flash_attention_tc_launch
+        tc.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+                       + [ctypes.c_float, ctypes.c_void_p])
+        tc.restype = ctypes.c_int
+        sm = lib.flash_attention_tc_smem_bytes
+        sm.argtypes = [ctypes.c_int] * 3
+        sm.restype = ctypes.c_longlong
     return lib
 
 
@@ -119,6 +143,10 @@ def _check(q, k, v, window) -> None:
                          f"{q.dtype} / {k.dtype} / {v.dtype}")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+    if tc.variant(q.dtype, k.dtype, d) == "tc" and any(
+            t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: the bf16 kernel's TMA loads need "
+                         "16-byte aligned q, k and v")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -128,23 +156,33 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B,Sq,H,D); k/v: (B,Skv,KV,D) with H % KV == 0.  Returns
     (B,Sq,H,D) in q's dtype.  ``block_q``/``block_kv`` override the
     default 128 x 128 tiling (autotuned through kernels/autotune.py)."""
-    global launches
+    global launches, launches_tc, last_launch
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     _check(q, k, v, window)
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
-    bq, bkv = effective_tiles(block_q, block_kv, sq, skv)
-    need = smem_bytes(bq, bkv, d, q.dtype)
+    var = tc.variant(q.dtype, k.dtype, d)
+    bq, bkv = effective_tiles(block_q, block_kv, sq, skv, var)
+    need = tc.smem_bytes(bq, bkv, d) if var == "tc" \
+        else smem_bytes(bq, bkv, d, q.dtype)
     if need > SMEM_LIMIT:
         raise ValueError(f"flash_attention: tiles ({bq}, {bkv}) at D={d} need "
                          f"{need} bytes of shared memory (> {SMEM_LIMIT})")
     out = torch.empty_like(q)
-    err = _lib().flash_attention_launch(
-        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out), b, sq,
-        skv, h, kvh, d, bq, bkv, int(bool(causal)), int(window),
-        _DTYPES[q.dtype], 1.0 / math.sqrt(d), _build.current_stream(q.device))
+    ptrs = (_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out))
+    dims = (b, sq, skv, h, kvh, d, bq, bkv, int(bool(causal)), int(window))
+    stream = _build.current_stream(q.device)
+    if var == "tc":
+        err = _lib().flash_attention_tc_launch(*ptrs, *dims,
+                                               1.0 / math.sqrt(d), stream)
+    else:
+        err = _lib().flash_attention_launch(*ptrs, *dims, _DTYPES[q.dtype],
+                                            1.0 / math.sqrt(d), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
+        raise RuntimeError(f"flash_attention ({var}) launch failed: "
+                           f"cudaError {err}")
     launches += 1
+    launches_tc += var == "tc"
+    last_launch = {"variant": var, "block_q": bq, "block_kv": bkv}
     return out

@@ -8,6 +8,16 @@ table.  Rows at or past ``lens[r]`` are 0.  The kernel
 (``csrc/flash_prefill_ragged.cu``) replaces the Pallas TPU kernel of the
 JAX package's ``kernels/flash_prefill_ragged.py``.
 
+Two variants, picked by ``attention_tc.variant`` from the dtypes and D:
+bf16 q and pages at D = 64 or 128 take the tensor-core kernel (``"tc"``: wgmma
+products, pages gathered with cp.async, P rounded to bf16, one CTA per
+query head and 64 or 128 suffix positions; the main loop it shares with
+``flash_attention``'s); fp32, mixed fp32/bf16 and
+other head dims take the fp32 CUDA-core kernel (``"ffma"``).
+``launches`` counts every launch, ``launches_tc`` those of the
+tensor-core variant, and ``last_launch`` holds the variant and
+``block_q`` the last launch ran.
+
 A CPU tensor goes to :func:`flash_prefill_ragged_plain`; a CUDA tensor
 goes to the kernel or raises.
 """
@@ -20,14 +30,35 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import attention_tc as tc
 from repro_torch.models import layers as L
 
-BQ = 32
+BQ = 32                      # block_q of the "ffma" variant
+TC_BQ = 128                  # default block_q of the "tc" variant
+TC_BLOCK_KV = 64             # keys per kv tile of the "tc" variant
 SMEM_LIMIT = 227 * 1024      # dynamic shared memory a CTA may use (H100)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# kernel launches since the count was last set to 0
+# kernel launches since the counts were last set to 0: all, and those of
+# the tensor-core variant
 launches = 0
+launches_tc = 0
+last_launch: dict = {}
+
+
+def effective_block_q(block_q: int | None, s: int, variant: str, g: int,
+                      d: int, page_size: int) -> int:
+    """The q tile a launch runs with.  ``"tc"``: 64 or 128, the one
+    nearer the request (32 maps to 64), 64 where that covers the ``s``
+    suffix positions; default :data:`TC_BQ`.  ``"ffma"``: the request
+    (default :data:`BQ`) clamped to ``s`` and halved while its shared
+    memory would not fit."""
+    if variant == "tc":
+        return tc.tile(TC_BQ if block_q is None else block_q, s)
+    bq = max(1, min(BQ if block_q is None else block_q, s))
+    while bq > 1 and smem_bytes(bq, g, d, page_size) > SMEM_LIMIT:
+        bq //= 2
+    return bq
 
 
 def _align4(n: int) -> int:
@@ -44,6 +75,13 @@ def smem_bytes(block_q: int, g: int, d: int, page_size: int) -> int:
     floats = (_align4(rows * d) + _align4(d * ps_pad) + _align4(page_size * d)
               + _align4(rows * page_size) + 3 * _align4(rows))
     return 4 * floats
+
+
+def smem_bytes_tc(block_q: int, d: int) -> int:
+    """Dynamic shared memory of a ``"tc"`` launch
+    (``flash_prefill_ragged_tc_smem_bytes``): the plan of the shared
+    tensor-core main loop with 64-key tiles."""
+    return tc.smem_bytes(block_q, TC_BLOCK_KV, d)
 
 
 def flash_prefill_ragged_plain(q, k_pages, v_pages, block_tables, offsets,
@@ -73,6 +111,13 @@ def _lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         sm = lib.flash_prefill_ragged_smem_bytes
         sm.argtypes = [ctypes.c_int] * 4
+        sm.restype = ctypes.c_longlong
+        tc = lib.flash_prefill_ragged_tc_launch
+        tc.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_void_p])
+        tc.restype = ctypes.c_int
+        sm = lib.flash_prefill_ragged_tc_smem_bytes
+        sm.argtypes = [ctypes.c_int] * 2
         sm.restype = ctypes.c_longlong
     return lib
 
@@ -108,21 +153,25 @@ def _check(q, k_pages, v_pages, block_tables, offsets, lens) -> None:
         if t.dtype != torch.int32 or tuple(t.shape) != (r,):
             raise ValueError(f"{name} must be int32 (R,), got {t.dtype} "
                              f"{tuple(t.shape)}")
+    if tc.variant(q.dtype, k_pages.dtype, d) == "tc" and any(
+            t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
+        raise ValueError("flash_prefill_ragged: the bf16 kernel's 16-byte "
+                         "copies need 16-byte aligned q and pages")
 
 
 def flash_prefill_ragged(q: torch.Tensor, k_pages: torch.Tensor,
                          v_pages: torch.Tensor, block_tables: torch.Tensor,
                          offsets: torch.Tensor, lens: torch.Tensor, *,
-                         block_q: int = BQ) -> torch.Tensor:
+                         block_q: int | None = None) -> torch.Tensor:
     """q: (R,S,H,D) suffix queries; k/v_pages: (P, page_size, KV, D) with
     H % KV == 0; block_tables: (R, M) int32 (entries past a request's
     pages parked on the serving layer's scratch page); offsets/lens: (R,)
     int32 — absolute position of q[:, 0] (the shared prefix length) and
     valid suffix tokens per request (0 = idle slot).  Suffix K/V must
     already be in the pages.  Returns (R,S,H,D) in q's dtype; rows at or
-    past ``lens`` are zero.  ``block_q`` is the query tile of one CTA,
-    halved while its shared memory would not fit."""
-    global launches
+    past ``lens`` are zero.  ``block_q`` is the query tile of one CTA
+    (:func:`effective_block_q` gives the one that runs)."""
+    global launches, launches_tc, last_launch
     if q.device.type == "cpu":
         return flash_prefill_ragged_plain(q, k_pages, v_pages, block_tables,
                                           offsets, lens)
@@ -130,22 +179,29 @@ def flash_prefill_ragged(q: torch.Tensor, k_pages: torch.Tensor,
     r, s, h, d = q.shape
     _, ps, kvh, _ = k_pages.shape
     lib = _lib()
-    bq = max(1, min(block_q, s))
-    while bq > 1 and smem_bytes(bq, h // kvh, d, ps) > SMEM_LIMIT:
-        bq //= 2
-    if smem_bytes(bq, h // kvh, d, ps) > SMEM_LIMIT:
+    var = tc.variant(q.dtype, k_pages.dtype, d)
+    bq = effective_block_q(block_q, s, var, h // kvh, d, ps)
+    if var == "ffma" and smem_bytes(bq, h // kvh, d, ps) > SMEM_LIMIT:
         raise ValueError(f"flash_prefill_ragged: one query row of g="
                          f"{h // kvh}, D={d}, page_size={ps} does not fit "
                          f"in shared memory")
     out = torch.empty_like(q)
-    err = lib.flash_prefill_ragged_launch(
-        _build.ptr(q), _build.ptr(k_pages), _build.ptr(v_pages),
-        _build.ptr(block_tables), _build.ptr(offsets), _build.ptr(lens),
-        _build.ptr(out), r, s, h, kvh, d, ps, block_tables.shape[1], bq,
-        _DTYPES[q.dtype], _DTYPES[k_pages.dtype], 1.0 / math.sqrt(d),
-        _build.current_stream(q.device))
+    ptrs = (_build.ptr(q), _build.ptr(k_pages), _build.ptr(v_pages),
+            _build.ptr(block_tables), _build.ptr(offsets), _build.ptr(lens),
+            _build.ptr(out))
+    dims = (r, s, h, kvh, d, ps, block_tables.shape[1], bq)
+    stream = _build.current_stream(q.device)
+    if var == "tc":
+        err = lib.flash_prefill_ragged_tc_launch(*ptrs, *dims,
+                                                 1.0 / math.sqrt(d), stream)
+    else:
+        err = lib.flash_prefill_ragged_launch(
+            *ptrs, *dims, _DTYPES[q.dtype], _DTYPES[k_pages.dtype],
+            1.0 / math.sqrt(d), stream)
     if err != 0:
-        raise RuntimeError(f"flash_prefill_ragged launch failed: "
+        raise RuntimeError(f"flash_prefill_ragged ({var}) launch failed: "
                            f"cudaError {err}")
     launches += 1
+    launches_tc += var == "tc"
+    last_launch = {"variant": var, "block_q": bq}
     return out

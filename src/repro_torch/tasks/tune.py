@@ -52,7 +52,7 @@ class Tune(OTask):
             problems = derive_problems(
                 handle, batch_m=self.param(meta, "batch_m"),
                 max_problems=self.param(meta, "max_problems"),
-                device=device, cache_path=self.param(meta, "cache_path"))
+                device=device)
         meta.record("tune.start", task=self.name,
                     problems=[p["kernel"] for p in problems])
 
@@ -115,8 +115,8 @@ class Tune(OTask):
 
 
 def derive_problems(handle: DNNHandle, *, batch_m: int = 128,
-                    max_problems: int = 4, device=None,
-                    cache_path: str | None = None) -> list[dict[str, Any]]:
+                    max_problems: int = 4,
+                    device=None) -> list[dict[str, Any]]:
     """Concrete kernel problems this model's forward pass executes — the
     JAX package's list, letter for letter:
 
@@ -129,7 +129,9 @@ def derive_problems(handle: DNNHandle, *, batch_m: int = 128,
     - flash_decode: one-token attention over the arch's decode cache;
     - flash_decode_paged, flash_prefill_ragged, paged_segment: the paged
       serving hot loop (linear caches only), keyed against the page size
-      the cache already holds for ``device``'s backend.
+      the default cache (:func:`autotune.default_cache_path`; the JAX
+      package reads its own default) already holds for ``device``'s
+      backend, whatever cache ``Tune`` tunes into.
     Largest problems first, capped at ``max_problems``.  An LM's per-layer
     matrices are 3-D stacked leaves in the path view, as in the JAX
     pytree, so they derive nothing.
@@ -192,11 +194,11 @@ def derive_problems(handle: DNNHandle, *, batch_m: int = 128,
             sized.append((seq * cache_len * cfg.n_heads,
                           {"kernel": "flash_decode_paged", **pprob}))
             # the admission prefill and the segment cadence are tuned
-            # against the page size the cache already holds (pure read;
-            # the kernel default on a cold cache)
+            # against the page size the default cache already holds (pure
+            # read; the kernel default on a cold cache), as the JAX
+            # package reads it
             pps = int(autotune.tile_readback(
-                "flash_decode_paged", pprob, cache_path=cache_path,
-                device=device)[0]["page_size"])
+                "flash_decode_paged", pprob, device=device)[0]["page_size"])
             sbucket = min(int(seq), 32)
             fprob = autotune.flash_prefill_ragged_problem(
                 db, sbucket, cfg.n_heads, cfg.n_kv_heads, hd, cache_len,

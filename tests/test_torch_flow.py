@@ -42,8 +42,9 @@ FA_PROBLEM = dict(q_shape=(1, 512, 28, 128), kv_shape=(1, 512, 4, 128),
 
 @pytest.fixture
 def cache_path(tmp_path, monkeypatch):
-    # the JAX package's default cache must not leak into its readbacks
+    # neither package's default cache may leak into its readbacks
     monkeypatch.setenv(jat.CACHE_ENV, str(tmp_path / "jax_default.json"))
+    monkeypatch.setenv(tat.CACHE_ENV, str(tmp_path / "port_default.json"))
     tat.clear_memory_cache()
     jat.clear_memory_cache()
     yield str(tmp_path / "autotune.json")
@@ -278,8 +279,7 @@ def test_derive_problems_toy_lm_and_masked_weight_equal_jax(cache_path):
                    model=_Model())
     th = DNNHandle(kind="lm", name="toy",
                    params={"w": torch.zeros((128, 128))}, model=_Model())
-    assert derive_problems(th, max_problems=4, device="cpu",
-                           cache_path=cache_path) == \
+    assert derive_problems(th, max_problems=4, device="cpu") == \
         jax_derive(jh, max_problems=4)
     w = np.random.default_rng(0).standard_normal((256, 384)).astype(
         np.float32)
@@ -289,7 +289,7 @@ def test_derive_problems_toy_lm_and_masked_weight_equal_jax(cache_path):
                    masks={"w": jmask})
     th = DNNHandle(kind="bench", name="m", params={"w": torch.from_numpy(w)},
                    masks={"w": tmask})
-    got = derive_problems(th, device="cpu", cache_path=cache_path)
+    got = derive_problems(th, device="cpu")
     assert got == jax_derive(jh)
     assert [p["kernel"] for p in got] == ["quant_matmul",
                                           "block_sparse_matmul"]
@@ -354,8 +354,7 @@ def test_stacked_vectors_prune_like_jax(cache_path):
 
 def test_derive_problems_qwen_smoke_equal_jax(qwen_smoke, cache_path):
     jh, th = qwen_smoke
-    assert derive_problems(th, max_problems=10, device="cpu",
-                           cache_path=cache_path) == \
+    assert derive_problems(th, max_problems=10, device="cpu") == \
         jax_derive(jh, max_problems=10)
     jm = jmasks.build_masks(jh.params, 0.5, "block")
     tm = tmasks.build_masks(th.params, 0.5, "block")
@@ -363,8 +362,7 @@ def test_derive_problems_qwen_smoke_equal_jax(qwen_smoke, cache_path):
     np.testing.assert_array_equal(tm["lm_head"].numpy(),
                                   np.asarray(jm["lm_head"]))
     jc, tc = jh.child(masks=jm), th.child(masks=tm)
-    assert derive_problems(tc, max_problems=10, device="cpu",
-                           cache_path=cache_path) == \
+    assert derive_problems(tc, max_problems=10, device="cpu") == \
         jax_derive(jc, max_problems=10)
     assert tc.summary_metrics() == jc.summary_metrics()
     # the masked copy shares every parameter but the masked one
@@ -373,6 +371,48 @@ def test_derive_problems_qwen_smoke_equal_jax(qwen_smoke, cache_path):
     assert eff.blocks[0].attn.wq is th.params.blocks[0].attn.wq
     torch.testing.assert_close(eff.lm_head,
                                th.params.lm_head * tm["lm_head"])
+
+
+def test_tune_derives_jax_problems_from_the_default_cache(qwen_smoke,
+                                                         cache_path,
+                                                         monkeypatch):
+    """The page size behind the prefill and segment problems comes from
+    each package's default cache, not from the cache ``Tune`` tunes into:
+    with both default caches warm (page size 64 won) and Tune's own cache
+    holding another winner (32), the port's Tune derives the JAX
+    package's problems."""
+    jh, th = qwen_smoke
+    pprob = next(p for p in jax_derive(jh, max_problems=10)
+                 if p["kernel"] == "flash_decode_paged")
+    key = tat.cache_key("flash_decode_paged",
+                        {k: v for k, v in pprob.items() if k != "kernel"})
+
+    def entry(page_size):
+        return {"config": {"page_size": page_size}, "us": 1.0,
+                "n_trials": 5, "iters": 3, "backend": "cpu", "t": 0.0}
+
+    jat._store(jat.default_cache_path(), key, entry(64))
+    tat._store(tat.default_cache_path(), key, entry(64))
+    tat._store(cache_path, key, entry(32))
+    want = jax_derive(jh, max_problems=10)
+    assert sorted(p["kernel"] for p in want if "page_size" in p) == \
+        ["flash_prefill_ragged", "paged_segment"]
+    assert all(p["page_size"] == 64 for p in want if "page_size" in p)
+    assert derive_problems(th, max_problems=10, device="cpu") == want
+    asked = []
+
+    def fake_tune(kernel, spec, **kw):
+        assert kw["cache_path"] == cache_path
+        asked.append({"kernel": kernel, **spec})
+        return tat.TuneResult(kernel, tat.cache_key(kernel, spec), {}, 1.0,
+                              cached=True)
+
+    monkeypatch.setattr(tat, "tune", fake_tune)
+    meta = MetaModel()
+    meta.add_model("q", "dnn", th)
+    Tune(max_problems=10, device="cpu", cache_path=cache_path).run(
+        meta, ["q#1"])
+    assert asked == want
 
 
 # ------------------------------------------------------------------ flow
