@@ -6,8 +6,11 @@ Phases, each printing one JSON line or more:
 1. device    — ``nvidia-smi`` name and power limit;
 2. build     — every CUDA kernel from ``src/repro_torch/csrc`` (nvcc, one
                process per source, all started together), its time, and
-               ``cuobjdump -sass`` of the two attention libraries: every
-               instance of their bf16 tensor-core variants holds HGMMA;
+               ``cuobjdump -sass`` of the four attention libraries: every
+               instance of the prefill pair's bf16 tensor-core variants
+               holds HGMMA, every instance of the decode pair's holds
+               HMMA (mma.sync) and LDGSTS (cp.async), and ptxas reports
+               no spill in the decode pair's;
 3. kernels   — each kernel against its plain PyTorch version on CUDA
                tensors at smoke and full-width shapes: the attention
                kernels and block_sparse_matmul in fp32 and bf16 within
@@ -17,7 +20,13 @@ Phases, each printing one JSON line or more:
                bf16 tensor-core variants of flash_prefill_ragged and
                flash_attention at D = 64 and 128 (page sizes 4 to 128,
                ragged offsets and lens, Sq != Skv, windows, every tile)
-               and two launches of each, bit for bit;
+               and two launches of each, bit for bit; then the bf16
+               split-KV variants of flash_decode_paged and flash_decode
+               at D = 64 and 128 (page sizes 4 to 256, ragged last
+               chunks, wrapped rings, rows with no live slot), two
+               launches bit for bit, and a request's bits unchanged by
+               its row, its siblings, its page numbers, the table width
+               and the batch;
 4. cpu_vs_gpu — Qwen2-7B at full width cut to 2 layers in fp32: the port
                on the CPU (plain versions) and on the card (kernels) must
                emit equal greedy tokens — the paged engine through a
@@ -29,14 +38,17 @@ Phases, each printing one JSON line or more:
                contiguous ``generate`` (batch 8, 512-token prompts, 64 new
                tokens) under the bf16 and the int8-mlp policy; each run's
                launch counts must match its layers × steps, and every
-               flash_prefill_ragged launch of the burst must take the
-               tensor-core variant;
+               flash_prefill_ragged and flash_decode_paged launch of the
+               burst and every flash_decode launch of bf16 ``generate``
+               must take the tensor-core variant;
 6. timing    — kernel, plain-version, roofline-bound and library times at
                the phase-5 shapes (flash_prefill_ragged also at the
                burst's shared-prefix dispatch), and at the phase-8 shapes
                for block_sparse_matmul and flash_attention (also bf16 at
                (1, 512) and (1, 4096)); the attention rows name the
-               variant and tiles that ran;
+               variant and tiles (decode: chunk and chunks) that ran,
+               and the decode rows split their device time by kernel
+               (torch.profiler);
 8. tune      — the TUNE O-task's flow at full width: ``ModelGen``
                (Qwen2-7B, 28 layers, bf16, seed 0) → a 50 % block mask
                on ``lm_head`` (standing in for PRUNING, whose LM path
@@ -122,42 +134,84 @@ def phase_build() -> None:
     libs = _build.build_all()
     secs = time.perf_counter() - t0
     OUT.mkdir(exist_ok=True)
-    ptxas = {}
+    ptxas, tc_ptxas = {}, {}
     for name in libs:
         log = _build.build_log.get(name, "")
         (OUT / f"build_{name}.log").write_text(log)
         ptxas[name] = [ln.strip() for ln in log.splitlines()
                        if "registers" in ln or "spill" in ln][:8]
+        tc_ptxas[name] = _tc_ptxas(log)
+    for name in DECODE_TC:
+        spills = {f: v for f, v in tc_ptxas[name].items()
+                  if v["spill_stores"] or v["spill_loads"]}
+        if len(tc_ptxas[name]) != TC_INSTANCES[name][0] or spills:
+            raise AssertionError(f"{name}: ptxas of the tensor-core "
+                                 f"instances {tc_ptxas[name]}")
     emit({"phase": "build", "seconds": round(secs, 3),
           "libraries": {k: str(v.relative_to(ROOT)) for k, v in libs.items()},
-          "ptxas": ptxas, "tc_sass": _check_tc_sass(libs)})
+          "ptxas": ptxas, "tc_ptxas": {k: v for k, v in tc_ptxas.items()
+                                       if v},
+          "tc_sass": _check_tc_sass(libs)})
 
 
-# instances of each bf16 tensor-core variant: (block_q, block_kv, D) and
-# (block_q, D)
-TC_INSTANCES = {"flash_attention": 8, "flash_prefill_ragged": 4}
+def _tc_ptxas(log: str) -> dict:
+    """Registers and spills of every ``*_tc_kernel`` instance in a
+    ``-Xptxas -v`` build log, by mangled name."""
+    import re
+    out, func = {}, None
+    for ln in log.splitlines():
+        hit = re.search(r"Function properties for (\S+)", ln)
+        if hit:
+            func = hit.group(1) if "_tc_kernel" in hit.group(1) else None
+            continue
+        if func is None:
+            continue
+        hit = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        ln)
+        if hit:
+            out.setdefault(func, {}).update(
+                spill_stores=int(hit.group(1)), spill_loads=int(hit.group(2)))
+        hit = re.search(r"Used (\d+) registers", ln)
+        if hit:
+            out.setdefault(func, {})["registers"] = int(hit.group(1))
+            func = None
+    return out
+
+
+# instances of each bf16 tensor-core variant and the SASS instructions
+# each must hold: (block_q, block_kv, D) and (block_q, D) with wgmma for
+# the prefill pair, (D, stages) with mma.sync and cp.async for the decode
+# pair
+TC_INSTANCES = {"flash_attention": (8, ("HGMMA",)),
+                "flash_prefill_ragged": (4, ("HGMMA",)),
+                "flash_decode_paged": (4, ("HMMA", "LDGSTS")),
+                "flash_decode": (4, ("HMMA", "LDGSTS"))}
+DECODE_TC = ("flash_decode_paged", "flash_decode")
 
 
 def _check_tc_sass(libs) -> dict:
-    """``cuobjdump -sass`` of the two attention libraries: every instance
-    of the tensor-core variant must hold HGMMA (wgmma) instructions; the
-    counts of TMA loads (UTMALDG) and cp.async copies (LDGSTS) show how
-    its tiles arrive."""
+    """``cuobjdump -sass`` of the four attention libraries: every instance
+    of a tensor-core variant must hold its product and copy instructions
+    (:data:`TC_INSTANCES`); the counts of HGMMA (wgmma), HMMA (mma.sync),
+    TMA loads (UTMALDG) and cp.async copies (LDGSTS) show how its tiles
+    arrive and multiply."""
     from repro_torch.kernels import _build
     tool = Path(_build._nvcc()).parent / "cuobjdump"
     out = {}
-    for name, n_inst in TC_INSTANCES.items():
+    for name, (n_inst, need) in TC_INSTANCES.items():
         sass = subprocess.run([str(tool), "-sass", str(libs[name])],
                               check=True, capture_output=True,
                               text=True).stdout
         funcs = [f for f in sass.split("Function : ")[1:]
                  if "_tc_kernel" in f.split("\n", 1)[0]]
-        counts = [{op: f.count(op) for op in ("HGMMA", "UTMALDG", "LDGSTS")}
+        counts = [{op: f.count(op) for op in ("HGMMA", "HMMA", "UTMALDG",
+                                              "LDGSTS")}
                   for f in funcs]
-        if len(funcs) != n_inst or any(c["HGMMA"] == 0 for c in counts):
+        if len(funcs) != n_inst or any(c[op] == 0 for c in counts
+                                       for op in need):
             raise AssertionError(f"{name}: {len(funcs)} tensor-core "
-                                 f"instances (want {n_inst}) with SASS "
-                                 f"counts {counts}")
+                                 f"instances (want {n_inst}, each with "
+                                 f"{need}) with SASS counts {counts}")
         out[name] = counts
     return out
 
@@ -489,12 +543,134 @@ def _check_tc_bit_equal(gen) -> dict:
     return out
 
 
+DTC_PAGE_SIZES = (4, 16, 48, 128, 256)
+
+
+def _expect_decode_tc(mod, chunk, n_chunks) -> None:
+    want = {"variant": "tc", "chunk": chunk, "n_chunks": n_chunks}
+    if mod.last_launch != want:
+        raise AssertionError(f"{mod.__name__}: launch {mod.last_launch}, "
+                             f"expected {want}")
+
+
+def _check_dead_row(name, out) -> None:
+    """A row with no live slot is 0, as the Pallas kernel writes it (the
+    plain version averages every value there)."""
+    import torch
+    torch.cuda.synchronize()
+    if bool(out.float().abs().any()):
+        raise AssertionError(f"{name}: a row with no live slot is not 0")
+
+
+def _check_decode_tc(gen, worst) -> int:
+    """The bf16 split-KV variants at D in {64, 128}, g in {1, 2, 7}.
+    flash_decode_paged: page sizes 4 to 256 (48: chunks of two pages;
+    256: a chunk of one page walked in two stages), about 300 slots a
+    row so that the last chunk is cut at M pages, seq lens 1, mid and
+    capacity and a row with no live slot.  flash_decode: caches of 37
+    (one ragged chunk), 577 and 1000 slots under linear and wrapped-ring
+    masks, and an all-dead mask.  Each against its plain version within
+    ``bf16_tol``; dead rows against 0."""
+    import torch
+    from repro_torch.kernels import decode_tc as dtc
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import flash_decode_paged as fdp
+    dt, n = torch.bfloat16, 0
+    for d in (64, 128):
+        for g in (1, 2, 7):
+            for ps in DTC_PAGE_SIZES:
+                r, kvh = 4, 2
+                m = -(-300 // ps)
+                cap = m * ps
+                q, kp, vp, bt, mask = _decode_inputs(
+                    gen, r, g * kvh, kvh, d, ps, m,
+                    [1, cap // 2, cap - 1, 0], dt)
+                mask[3] = False
+                out = fdp.flash_decode_paged(q, kp, vp, bt, mask)
+                chunk = dtc.paged_chunk(ps)
+                _expect_decode_tc(fdp, chunk, dtc.n_chunks(cap, chunk))
+                ref = fdp.flash_decode_paged_plain(q, kp, vp, bt, mask)
+                _compare("flash_decode_paged", out[:3], ref[:3], dt, worst,
+                         ("tc", d, g, ps))
+                _check_dead_row("flash_decode_paged", out[3])
+                n += 1
+            for cache_len in (37, 577, 1000):
+                q, k, v = _contig_inputs(gen, 3, cache_len, 2 * g, 2, d, dt)
+                for case, mask in _contig_masks(cache_len):
+                    out = fd.flash_decode(q, k, v, mask)
+                    _expect_decode_tc(fd, dtc.CHUNK,
+                                      dtc.n_chunks(cache_len, dtc.CHUNK))
+                    _compare("flash_decode", out,
+                             fd.flash_decode_plain(q, k, v, mask), dt,
+                             worst, ("tc", d, g, cache_len, case))
+                    n += 1
+                _check_dead_row("flash_decode", fd.flash_decode(
+                    q, k, v, torch.zeros_like(mask)))
+    return n
+
+
+def _check_decode_tc_bits(gen) -> dict:
+    """The invariance contract of the split-KV variants, bit for bit at
+    the serving shapes (H = 28 over KV = 4, D = 128): two launches agree;
+    a request's output is the same in another row with other siblings,
+    with its pages renumbered and with a wider block table (entries on
+    the scratch page 0, masked); a sequence's is the same in a smaller
+    batch."""
+    import torch
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import flash_decode_paged as fdp
+    dt = torch.bfloat16
+    r, h, kvh, d, ps, m = 8, 28, 4, 128, 16, 37
+    seq = [544, 1, 300, 575, 17, 128, 129, 591]
+    q, kp, vp, bt, mask = _decode_inputs(gen, r, h, kvh, d, ps, m, seq, dt)
+    call = fdp.flash_decode_paged
+    base = call(q, kp, vp, bt, mask)
+    checks = {"two_launches": torch.equal(base, call(q, kp, vp, bt, mask))}
+    # request 0 as row 5, among siblings with other queries and lengths
+    q2, _, _, bt2, mask2 = _decode_inputs(gen, r, h, kvh, d, ps, m,
+                                          seq[::-1], dt)
+    q2[5], bt2[5], mask2[5] = q[0], bt[0], mask[0]
+    checks["other_row"] = torch.equal(call(q2, kp, vp, bt2, mask2)[5],
+                                      base[0])
+    # the same values at other physical pages (page 0 stays the scratch)
+    perm = torch.cat([torch.zeros(1, dtype=torch.long),
+                      torch.randperm(kp.shape[0] - 1, generator=gen) + 1])
+    perm = perm.cuda()
+    kp3, vp3 = torch.empty_like(kp), torch.empty_like(vp)
+    kp3[perm], vp3[perm] = kp, vp
+    bt3 = perm[bt.long()].to(torch.int32)
+    checks["renumbered_pages"] = torch.equal(call(q, kp3, vp3, bt3, mask),
+                                             base)
+    # a wider table: 11 more blocks on the scratch page, masked out
+    bt4 = torch.cat([bt, torch.zeros((r, 11), dtype=torch.int32,
+                                     device="cuda")], dim=1)
+    mask4 = torch.cat([mask, torch.zeros((r, 11 * ps), dtype=torch.bool,
+                                         device="cuda")], dim=1)
+    checks["wider_table"] = torch.equal(call(q, kp, vp, bt4, mask4), base)
+    # contiguous: two launches, and sequences 3 and 6 as a batch of two
+    n = 577
+    q, k, v = _contig_inputs(gen, 8, n, h, kvh, d, dt)
+    mask = _contig_masks(n)[3][1]
+    full = fd.flash_decode(q, k, v, mask)
+    checks["contig_two_launches"] = torch.equal(
+        full, fd.flash_decode(q, k, v, mask))
+    idx = torch.tensor([3, 6], device="cuda")
+    checks["contig_subset"] = torch.equal(
+        fd.flash_decode(q[idx].contiguous(), k[idx].contiguous(),
+                        v[idx].contiguous(), mask), full[idx])
+    if not all(checks.values()) or fdp.last_launch["variant"] != "tc" \
+            or fd.last_launch["variant"] != "tc":
+        raise AssertionError(f"split-KV decode bits differ: {checks}")
+    return checks
+
+
 def _check_smem_models() -> int:
     """Each wrapper's Python shared-memory model (what the autotuner
     filters on and the wrapper checks) equals the number its kernel
     library computes for the launch."""
     from repro_torch.kernels import attention_tc as tc
     from repro_torch.kernels import block_sparse_matmul as bsmm
+    from repro_torch.kernels import decode_tc as dtc
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import flash_decode_paged as fdp
@@ -525,6 +701,14 @@ def _check_smem_models() -> int:
                                   fpr.smem_bytes(bq, g, d, ps),
                                   fpr._lib().flash_prefill_ragged_smem_bytes(
                                       bq, g, d, ps)))
+    for d in (64, 128):
+        for chunk in (dtc.CHUNK, 256, 512):
+            pairs.append((("fd_tc", d, chunk), dtc.smem_bytes(d, chunk),
+                          fd._lib().flash_decode_tc_smem_bytes(d, chunk)))
+        for ps in (4, 8, 16, 48, 64, 100, 128, 256, 512):
+            pairs.append((("fdp_tc", d, ps), fdp.smem_bytes_tc(d, ps),
+                          fdp._lib().flash_decode_paged_tc_smem_bytes(
+                              d, dtc.paged_chunk(ps))))
     for bq in tc.TILES:
         for d in fa.HEAD_DIMS:
             for bkv in tc.TILES:
@@ -608,8 +792,12 @@ def phase_kernels() -> dict:
     n_smem = _check_smem_models()
     n_tc = _check_tc_variants(gen, worst)
     bit_equal = _check_tc_bit_equal(gen)
-    emit({"phase": "kernels", "cases": n_cases + n_qmm + n_tc,
-          "tc_cases": n_tc, "tc_bit_equal": bit_equal, "fp32_tol": FP32_TOL,
+    n_dtc = _check_decode_tc(gen, worst)
+    decode_bits = _check_decode_tc_bits(gen)
+    emit({"phase": "kernels", "cases": n_cases + n_qmm + n_tc + n_dtc,
+          "tc_cases": n_tc, "tc_bit_equal": bit_equal,
+          "decode_tc_cases": n_dtc, "decode_tc_bits": decode_bits,
+          "fp32_tol": FP32_TOL,
           "block_sparse_fp32_tol": "1e-5 * max|plain|",
           "bf16_tol": "2**-7 * max|plain| + 1e-6 (one bf16 ulp)",
           "quant_matmul": f"{n_qmm} cases exactly equal, int32 wrap "
@@ -817,12 +1005,13 @@ def phase_serve() -> dict:
                                  expected["flash_prefill_ragged"]) < 1:
         raise AssertionError(f"launch counts {counts} != {expected}")
     # bf16 activations and cache at D = 128: every admission dispatch's
-    # attention goes to the tensor-core variant
-    if tc_counts != {"flash_prefill_ragged": counts["flash_prefill_ragged"],
-                     "flash_attention": 0}:
+    # and every decode step's attention goes to the tensor-core variant
+    want_tc = {"flash_decode_paged": counts["flash_decode_paged"],
+               "flash_prefill_ragged": counts["flash_prefill_ragged"],
+               "flash_decode": 0, "flash_attention": 0}
+    if tc_counts != want_tc:
         raise AssertionError(f"tensor-core launches {tc_counts}, expected "
-                             f"all {counts['flash_prefill_ragged']} "
-                             f"flash_prefill_ragged launches")
+                             f"{want_tc}")
     emit({"phase": "serve", "arch": cfg.name, "layers": cfg.n_layers,
           "dtype": "bfloat16", **c, "init_s": round(t_init, 3),
           "wall_s": wall, "prefill_s": st["prefill_s"],
@@ -876,6 +1065,7 @@ def phase_generate(cfg, lm) -> dict:
         toks, t = timed_generate(model, lm, prompts, n_gen, cache_len,
                                  fns=fns)
         counts = _read_counts()
+        tc_counts = _read_tc_counts()
         expected = {"flash_decode_paged": 0, "flash_prefill_ragged": 0,
                     "flash_decode": cfg.n_layers * (n_gen - 1),
                     "quant_matmul": n_mlp * cfg.n_layers * n_gen if int8
@@ -883,6 +1073,12 @@ def phase_generate(cfg, lm) -> dict:
         if counts != expected:
             raise AssertionError(f"generate {pname}: launch counts {counts} "
                                  f"!= {expected}")
+        # bf16 q and cache at D = 128: every decode step's attention on
+        # the tensor-core variant
+        if not int8 and tc_counts["flash_decode"] != counts["flash_decode"]:
+            raise AssertionError(f"generate {pname}: tensor-core launches "
+                                 f"{tc_counts}, expected all "
+                                 f"{counts['flash_decode']} flash_decode")
         host = toks.cpu()
         if host.shape != (b, n_gen) or not bool(
                 ((host >= 0) & (host < cfg.vocab_size)).all()):
@@ -896,7 +1092,8 @@ def phase_generate(cfg, lm) -> dict:
               "decode_tokens_per_s": decode_tokens / t["decode_s"],
               "prefill_tokens_per_s": b * s / t["prefill_s"],
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-              "launches": counts, "sample": host[0, :8].tolist()})
+              "launches": counts, "launches_tc": tc_counts,
+              "sample": host[0, :8].tolist()})
         if int8:
             launches["quant_matmul"] = counts["quant_matmul"]
         else:
@@ -1223,9 +1420,10 @@ def _profile_generate(cfg, lm) -> None:
         torch.cuda.empty_cache()
 
 
-# A spin on the card long enough (about 0.1 ms) for the host to prepare
-# and enqueue the timed call behind it.
-HOST_COVER_CYCLES = 200_000
+# A spin on the card long enough (about 0.5 ms) for the host to prepare
+# and enqueue the timed call behind it (a decode wrapper's call takes
+# about 0.05 ms of host time, more on a busy host).
+HOST_COVER_CYCLES = 1_000_000
 
 
 def _time_ms(fn, reps: int, flush) -> float:
@@ -1251,6 +1449,25 @@ def _time_ms(fn, reps: int, flush) -> float:
     return statistics.median(times)
 
 
+def _device_ms_by_kernel(fn, flush, reps: int = 20) -> dict:
+    """Mean device time of each kernel of ``fn`` over ``reps`` calls, each
+    after an L2 flush, from torch.profiler (the flush's own kernel left
+    out): where a two-kernel call's time goes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: e.device_time_total / e.count / 1e3
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.count == reps and "decode" in e.key}
+
+
 def phase_timing(launches: dict) -> list:
     import torch
     import torch.nn.functional as F
@@ -1271,6 +1488,7 @@ def phase_timing(launches: dict) -> list:
     seq = [c["prompt_len"] + 32] * r
     q, kp, vp, bt, mask = _decode_inputs(gen, r, h, kvh, d, ps, m, seq, dt)
     out = fdp.flash_decode_paged(q, kp, vp, bt, mask)
+    launch = dict(fdp.last_launch)
     ref = fdp.flash_decode_paged_plain(q, kp, vp, bt, mask)
     err = float((out.float() - ref.float()).abs().max())
     live = sum(s + 1 for s in seq)
@@ -1283,16 +1501,19 @@ def phase_timing(launches: dict) -> list:
     am = mask[:, None, None, :]
     lib = (lambda: F.scaled_dot_product_attention(
         qs, kf, vf, attn_mask=am, enable_gqa=True)) if sdpa_gqa else None
-    rows.append(_row("flash_decode_paged",
-                     "src/repro_torch/csrc/flash_decode_paged.cu",
-                     "src/repro/kernels/flash_decode_paged.py:74",
-                     launches, err, bf16_tol(ref),
+    rows.append({**_row("flash_decode_paged",
+                        "src/repro_torch/csrc/flash_decode_paged.cu",
+                        "src/repro/kernels/flash_decode_paged.py:74",
+                        launches, err, bf16_tol(ref),
+                        lambda: fdp.flash_decode_paged(q, kp, vp, bt, mask),
+                        lambda: fdp.flash_decode_paged_plain(q, kp, vp, bt,
+                                                             mask),
+                        lib, nbytes, flops, flush,
+                        {"R": r, "H": h, "KV": kvh, "D": d, "page_size": ps,
+                         "M": m, "seq_lens": seq[0], "dtype": "bfloat16"}),
+                 **launch, "device_ms_by_kernel": _device_ms_by_kernel(
                      lambda: fdp.flash_decode_paged(q, kp, vp, bt, mask),
-                     lambda: fdp.flash_decode_paged_plain(q, kp, vp, bt,
-                                                          mask),
-                     lib, nbytes, flops, flush,
-                     {"R": r, "H": h, "KV": kvh, "D": d, "page_size": ps,
-                      "M": m, "seq_lens": seq[0], "dtype": "bfloat16"}))
+                     flush)})
 
     # prefill: the burst's fresh dispatch, 8 x 512-token prompts, then its
     # shared-prefix dispatch, 8 x 256-token suffixes after 256 shared
@@ -1472,6 +1693,7 @@ def _flash_decode_row(gen, launches, flush, sdpa_gqa) -> dict:
     mask = L.decode_attention_mask(
         L.kv_positions_for_cache(pos, n, 0, device="cuda"), pos, 0)
     out = fd.flash_decode(q, k, v, mask)
+    launch = dict(fd.last_launch)
     ref = fd.flash_decode_plain(q, k, v, mask)
     err = float((out.float() - ref.float()).abs().max())
     live = pos + 1
@@ -1481,13 +1703,15 @@ def _flash_decode_row(gen, launches, flush, sdpa_gqa) -> dict:
     am = mask[None, None, None, :]
     lib = (lambda: F.scaled_dot_product_attention(
         qs, ks, vs, attn_mask=am, enable_gqa=True)) if sdpa_gqa else None
-    return _row("flash_decode", "src/repro_torch/csrc/flash_decode.cu",
-                "src/repro/kernels/flash_decode.py:130", launches, err,
-                bf16_tol(ref), lambda: fd.flash_decode(q, k, v, mask),
-                lambda: fd.flash_decode_plain(q, k, v, mask), lib, nbytes,
-                flops, flush,
-                {"B": b, "H": h, "KV": kvh, "D": d, "L": n, "pos": pos,
-                 "dtype": "bfloat16"})
+    return {**_row("flash_decode", "src/repro_torch/csrc/flash_decode.cu",
+                   "src/repro/kernels/flash_decode.py:130", launches, err,
+                   bf16_tol(ref), lambda: fd.flash_decode(q, k, v, mask),
+                   lambda: fd.flash_decode_plain(q, k, v, mask), lib,
+                   nbytes, flops, flush,
+                   {"B": b, "H": h, "KV": kvh, "D": d, "L": n, "pos": pos,
+                    "dtype": "bfloat16"}),
+            **launch, "device_ms_by_kernel": _device_ms_by_kernel(
+                lambda: fd.flash_decode(q, k, v, mask), flush)}
 
 
 # Qwen2-7B's gate/up projection at decode and at the phase-5 prefill

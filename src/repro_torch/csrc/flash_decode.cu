@@ -12,28 +12,40 @@
 // Bound on an H100: bytes.  Every live slot's K and V row is read once
 // (2 * live * KV * D * itemsize bytes for each sequence) for ~4 * g FLOPs
 // per element read, far below the ~295 FLOP/byte where the card's
-// arithmetic becomes the limit, so the floor is those bytes / 3.35 TB/s.
+// arithmetic becomes the limit, so the floor is 2 * live * KV * D * 2
+// bytes / 3.35 TB/s in bf16 (about 2.7 us for 8 sequences of 545 live
+// slots at KV = 4, D = 128).
 //
-// Design.  The TPU split the cache into block_kv tiles walked as the
-// sequential innermost grid dimension, carrying (m, l, acc) in VMEM.  Here
-// one CTA per (sequence, kv head) walks the cache itself in tiles of
+// Two variants; kernels/decode_tc.py::variant picks one from the dtypes
+// and D.
+//
+// bf16 q and cache at D = 64 or 128 (flash_decode_tc_launch): the
+// split-KV tensor-core main loop of decode_tc.cuh, which says what the
+// split, the cp.async ring and mma.sync do.  Here slot s of sequence b
+// is at (b * L + s) * KV * D + kh * D, and the chunk is a fixed number of
+// slots (decode_tc.py::CHUNK); the last chunk of a cache length no chunk
+// divides (577 = 4 * 128 + 65) is masked in place: there is no pad copy
+// of the cache.  What the one-CTA-per-sequence design below could not
+// do: its grid was B * KV CTAs (32 at the serving shape, on 132 SMs),
+// each walking the cache alone with synchronous loads widened to fp32 and
+// scalar FFMA products, far below the card's memory rate.
+//
+// fp32, mixed fp32/bf16 and other head dims (flash_decode_launch): one
+// CTA per (sequence, kv head) walks the cache itself in tiles of
 // kTileSlots slots and carries (m, l, acc) in shared memory: no atomics
-// and no split across CTAs, so a token's result never depends on
-// scheduling and greedy decoding is bit-reproducible run to run.  The
-// g = H / KV query heads sharing a kv head are the rows of one tile,
-// scored against one read of each K/V row (no expanded copy for GQA; g
-// need not be a power of two).  Tiles without a live slot are skipped
-// (the Pallas pl.when(any(live))), dead slots of a live tile load as
-// zeros, and the last tile of a cache length no tile divides (577 =
-// 9 * 64 + 1) is masked in place: there is no pad copy of the cache.
-// Each warp runs the online-softmax update of one row with shuffle
-// reductions in a fixed order; fp32 arithmetic on CUDA cores.  What
-// bounds this form is the small grid (B * KV CTAs, 32 at the serving
-// shape) and the shared-memory traffic of the score and PV loops; a
-// deterministic two-pass split over L and tensor-core products are later
-// work.
+// and no split across CTAs.  The g = H / KV query heads sharing a kv head
+// are the rows of one tile, scored against one read of each K/V row (no
+// expanded copy for GQA).  Tiles without a live slot are skipped (the
+// Pallas pl.when(any(live))), dead slots of a live tile load as zeros,
+// and a ragged last tile is masked in place.  Each warp runs the online-
+// softmax update of one row with shuffle reductions in a fixed order;
+// fp32 arithmetic on CUDA cores.
+//
+// Both variants are deterministic: a token's result never depends on
+// scheduling, and greedy decoding is bit-reproducible run to run.
 
 #include "common.cuh"
+#include "decode_tc.cuh"
 
 namespace {
 
@@ -210,6 +222,49 @@ int launch(const void* q, const void* k, const void* v, const uint8_t* mask,
   return (int)cudaGetLastError();
 }
 
+// Slot addressing of the bf16 variant: one sequence's cache for kv head
+// kh, under the batch-shared mask.
+struct ContigSlots {
+  const uint8_t* mask;  // (L,)
+  int n;
+  long long base, row;  // (b * L * KV + kh) * D, KV * D
+  __device__ bool live(int s) const { return s < n && mask[s] != 0; }
+  __device__ long long offset(int s) const { return base + s * row; }
+};
+
+template <int D, int S>
+__global__ void __launch_bounds__(dtc::kThreads, dtc::kMinCtas)
+    decode_tc_kernel(const dtc::bf16* __restrict__ q,
+                     const dtc::bf16* __restrict__ k,
+                     const dtc::bf16* __restrict__ v,
+                     const uint8_t* __restrict__ mask,
+                     float* __restrict__ ws, int H, int KV, int L,
+                     int chunk, int n_chunks, float scale_log2) {
+  extern __shared__ __align__(16) unsigned char dtc_smem[];
+  const dtc::Cta cta(H, KV, n_chunks);
+  const ContigSlots sl{mask, L,
+                       ((long long)cta.r * L * KV + cta.kh) * D,
+                       (long long)KV * D};
+  const size_t q_off = ((size_t)cta.r * H + (size_t)cta.kh * cta.g +
+                      cta.row0) * D;
+  dtc::chunk_partial<D, S>(
+      sl, k, v, q + q_off, cta, chunk, scale_log2,
+      dtc::Workspace{ws, (size_t)gridDim.z * KV * n_chunks * cta.g, D},
+      dtc_smem);
+}
+
+template <int D, int S>
+int launch_tc(const void* q, const void* k, const void* v,
+              const uint8_t* mask, void* out, float* ws, int B, int H,
+              int KV, int L, int chunk, int n_chunks, float scale,
+              cudaStream_t stream) {
+  return dtc::launch<D, S>(
+      decode_tc_kernel<D, S>, ws, static_cast<dtc::bf16*>(out), H, KV, B,
+      n_chunks, chunk, stream, static_cast<const dtc::bf16*>(q),
+      static_cast<const dtc::bf16*>(k), static_cast<const dtc::bf16*>(v),
+      mask, ws, H, KV, L, chunk, n_chunks, scale * dtc::kLog2e);
+}
+
 }  // namespace
 
 // Dynamic shared memory one CTA needs (the wrapper checks it fits).
@@ -236,5 +291,37 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
   if (q_dtype == kBFloat16 && kv_dtype == kFloat32)
     return launch<__nv_bfloat16, float>(q, k, v, mask, out, B, H, KV, D, L,
                                         scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of a partial CTA of the bf16 variant
+// (decode_tc.py::smem_bytes mirrors it).
+extern "C" long long flash_decode_tc_smem_bytes(int D, int chunk) {
+  return dtc::smem_bytes(D, chunk);
+}
+
+// bf16 q and cache at D = 64 or 128.  chunk: slots of a chunk; n_chunks =
+// ceil(L / chunk); ws: the fp32 workspace of B * KV * n_chunks * g *
+// (D + 2) floats.  q and cache 16-byte aligned (16-byte cp.async).
+extern "C" int flash_decode_tc_launch(const void* q, const void* k,
+                                      const void* v, const uint8_t* mask,
+                                      void* out, float* ws, int B, int H,
+                                      int KV, int D, int L, int chunk,
+                                      int n_chunks, float scale,
+                                      void* stream) {
+  if (B < 1 || KV < 1 || H % KV != 0 || L < 1 || chunk < 1 ||
+      n_chunks != (L + chunk - 1) / chunk ||
+      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_FD_TC(DD, SS)                                                 \
+  if (D == DD && dtc::stages(chunk) == SS)                                  \
+    return launch_tc<DD, SS>(q, k, v, mask, out, ws, B, H, KV, L, chunk,    \
+                             n_chunks, scale, s);
+  REPRO_FD_TC(64, 1)
+  REPRO_FD_TC(64, 2)
+  REPRO_FD_TC(128, 1)
+  REPRO_FD_TC(128, 2)
+#undef REPRO_FD_TC
   return (int)cudaErrorInvalidValue;
 }

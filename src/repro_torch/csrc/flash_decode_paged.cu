@@ -7,29 +7,43 @@
 // (models/layers.py::paged_decode_attention_mask, passed as uint8).
 //
 // Bound on an H100: bytes.  Each request reads its live K/V once
-// (2 * (seq_len + 1) * KV * D * itemsize bytes) and does ~4 * g FLOPs per
-// element read, far below the ~295 FLOP/byte the card needs before its
-// arithmetic is the limit, so the floor is live K/V bytes / 3.35 TB/s.
+// (2 * live * KV * D * itemsize bytes) and does ~4 * g FLOPs per element
+// read, far below the ~295 FLOP/byte the card needs before its arithmetic
+// is the limit, so the floor is 2 * live * KV * D * 2 bytes / 3.35 TB/s in
+// bf16 (about 2.7 us for 8 requests of 545 slots at KV = 4, D = 128).
 //
-// Design.  The TPU walked pages as the sequential innermost grid dimension
-// and carried (m, l, acc) in VMEM.  Here one CTA per (request, kv head)
-// walks the request's block-table row itself and carries (m, l, acc) in
-// shared memory: no atomics and no split across CTAs, so a token's result
-// never depends on scheduling and greedy decoding is bit-reproducible run
-// to run.  The g = H / KV query heads sharing a kv head are the rows of
-// one tile, scored against one read of each page (no K/V copy for GQA).
-// A step takes a tile of whole pages (up to kTileSlots slots) so that one
-// round of loads and barriers covers several pages; tiles without a live
-// slot are skipped (the Pallas pl.when(any(live))), dead slots of a live
-// tile load as zeros, and block-table entries past a request's pages point
-// at the scratch page 0, a valid address.  Each warp runs the online-
-// softmax update of one row with shuffle reductions in a fixed order.
-// fp32 arithmetic on CUDA cores.  What bounds this form is the small grid
-// (R * KV CTAs, 32 at the serving shape) and shared-memory traffic of the
-// score and PV loops; tensor-core (mma/wgmma) products and TMA-fed pages
-// are later work.
+// Two variants; kernels/decode_tc.py::variant picks one from the dtypes
+// and D.
+//
+// bf16 q and pages at D = 64 or 128 (flash_decode_paged_tc_launch): the
+// split-KV tensor-core main loop of decode_tc.cuh, which says what the
+// split, the cp.async ring and mma.sync do.  Here a logical slot s of
+// request r reaches its K/V row through the block table,
+// (bt[r][s / ps] * ps + s % ps) * KV * D + kh * D; a chunk is a whole
+// number of pages (decode_tc.py::paged_chunk), and slots past M * ps are
+// masked in place.  Block-table entries past a request's pages point at
+// the scratch page 0, a valid address; a dead slot's K/V row is never
+// read.  What the one-CTA-per-row design below could not do: its grid was
+// R * KV CTAs (32 at the serving shape, on 132 SMs), each walking ~545
+// slots alone with synchronous loads widened to fp32 and scalar FFMA
+// products, far below the card's memory rate.
+//
+// fp32, mixed fp32/bf16 and other head dims (flash_decode_paged_launch):
+// one CTA per (request, kv head) walks the request's block-table row
+// itself and carries (m, l, acc) in shared memory: no atomics and no
+// split across CTAs.  The g = H / KV query heads sharing a kv head are
+// the rows of one tile, scored against one read of each page.  A step
+// takes a tile of whole pages (up to kTileSlots slots); tiles without a
+// live slot are skipped (the Pallas pl.when(any(live))), dead slots of a
+// live tile load as zeros.  Each warp runs the online-softmax update of
+// one row with shuffle reductions in a fixed order; fp32 arithmetic on
+// CUDA cores.
+//
+// Both variants are deterministic: a token's result never depends on
+// scheduling, and greedy decoding is bit-reproducible run to run.
 
 #include "common.cuh"
+#include "decode_tc.cuh"
 
 namespace {
 
@@ -218,6 +232,56 @@ int launch(const void* q, const void* kp, const void* vp, const int* bt,
   return (int)cudaGetLastError();
 }
 
+// Slot addressing of the bf16 variant: one request's row of the block
+// table and of the mask, for kv head kh.
+struct PagedSlots {
+  const uint8_t* mask;  // (M * ps,)
+  const int* bt;        // (M,)
+  int n, ps;
+  long long head, row;  // kh * D, KV * D
+  __device__ bool live(int s) const { return s < n && mask[s] != 0; }
+  __device__ long long offset(int s) const {
+    const int b = s / ps;
+    return ((long long)bt[b] * ps + (s - b * ps)) * row + head;
+  }
+};
+
+template <int D, int S>
+__global__ void __launch_bounds__(dtc::kThreads, dtc::kMinCtas)
+    paged_decode_tc_kernel(const dtc::bf16* __restrict__ q,
+                           const dtc::bf16* __restrict__ k_pages,
+                           const dtc::bf16* __restrict__ v_pages,
+                           const int* __restrict__ block_tables,
+                           const uint8_t* __restrict__ mask,
+                           float* __restrict__ ws, int H, int KV, int ps,
+                           int M, int chunk, int n_chunks,
+                           float scale_log2) {
+  extern __shared__ __align__(16) unsigned char dtc_smem[];
+  const dtc::Cta cta(H, KV, n_chunks);
+  const int n = M * ps;
+  const PagedSlots sl{mask + (size_t)cta.r * n,
+                      block_tables + (size_t)cta.r * M, n, ps,
+                      (long long)cta.kh * D, (long long)KV * D};
+  const size_t q_off = ((size_t)cta.r * H + (size_t)cta.kh * cta.g +
+                      cta.row0) * D;
+  dtc::chunk_partial<D, S>(
+      sl, k_pages, v_pages, q + q_off, cta, chunk, scale_log2,
+      dtc::Workspace{ws, (size_t)gridDim.z * KV * n_chunks * cta.g, D},
+      dtc_smem);
+}
+
+template <int D, int S>
+int launch_tc(const void* q, const void* kp, const void* vp, const int* bt,
+              const uint8_t* mask, void* out, float* ws, int R, int H, int KV,
+              int ps, int M, int chunk, int n_chunks, float scale,
+              cudaStream_t stream) {
+  return dtc::launch<D, S>(
+      paged_decode_tc_kernel<D, S>, ws, static_cast<dtc::bf16*>(out), H, KV,
+      R, n_chunks, chunk, stream, static_cast<const dtc::bf16*>(q),
+      static_cast<const dtc::bf16*>(kp), static_cast<const dtc::bf16*>(vp),
+      bt, mask, ws, H, KV, ps, M, chunk, n_chunks, scale * dtc::kLog2e);
+}
+
 }  // namespace
 
 // Dynamic shared memory one CTA needs (the wrapper checks it fits).
@@ -248,5 +312,38 @@ extern "C" int flash_decode_paged_launch(
     return launch<__nv_bfloat16, float>(q, k_pages, v_pages, block_tables,
                                         mask, out, R, H, KV, D, ps, M, scale,
                                         s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of a partial CTA of the bf16 variant
+// (decode_tc.py::smem_bytes mirrors it).
+extern "C" long long flash_decode_paged_tc_smem_bytes(int D, int chunk) {
+  return dtc::smem_bytes(D, chunk);
+}
+
+// bf16 q and pages at D = 64 or 128.  chunk: slots of a chunk, a whole
+// number of pages; n_chunks = ceil(M * ps / chunk); ws: the fp32
+// workspace of R * KV * n_chunks * g * (D + 2) floats.  q and pages
+// 16-byte aligned (16-byte cp.async).
+extern "C" int flash_decode_paged_tc_launch(
+    const void* q, const void* k_pages, const void* v_pages,
+    const int* block_tables, const uint8_t* mask, void* out, float* ws,
+    int R, int H, int KV, int D, int ps, int M, int chunk, int n_chunks,
+    float scale, void* stream) {
+  if (R < 1 || KV < 1 || H % KV != 0 || ps < 1 || M < 1 || chunk < ps ||
+      chunk % ps != 0 || n_chunks != (M * ps + chunk - 1) / chunk ||
+      ((uintptr_t)q | (uintptr_t)k_pages | (uintptr_t)v_pages) % 16)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_FDP_TC(DD, SS)                                                \
+  if (D == DD && dtc::stages(chunk) == SS)                                  \
+    return launch_tc<DD, SS>(q, k_pages, v_pages, block_tables, mask, out,  \
+                             ws, R, H, KV, ps, M, chunk, n_chunks, scale,   \
+                             s);
+  REPRO_FDP_TC(64, 1)
+  REPRO_FDP_TC(64, 2)
+  REPRO_FDP_TC(128, 1)
+  REPRO_FDP_TC(128, 2)
+#undef REPRO_FDP_TC
   return (int)cudaErrorInvalidValue;
 }

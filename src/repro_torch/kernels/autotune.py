@@ -60,6 +60,7 @@ import torch
 from repro_torch.core.search import SearchResult, exhaustive_search
 from repro_torch.kernels import attention_tc as tc
 from repro_torch.kernels import block_sparse_matmul as bsmm
+from repro_torch.kernels import decode_tc as dtc
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import flash_decode_paged as fdp
@@ -307,9 +308,11 @@ def flash_attention_problem(q_shape, kv_shape, dtype, *,
 # flash decode ---------------------------------------------------------------
 def _fd_candidates(problem: dict[str, Any]
                    ) -> list[tuple[dict[str, int], int]]:
-    # the kernel picks its own 64-slot tiling: one launch to time
-    g = problem["h"] // problem["kv_heads"]
-    return [({}, fd.smem_bytes(g, problem["d"]))]
+    # the kernel picks its own tiling: one launch to time
+    g, d = problem["h"] // problem["kv_heads"], problem["d"]
+    if dtc.variant(problem["dtype"], problem["dtype"], d) == "tc":
+        return [({}, dtc.smem_bytes(d, dtc.CHUNK))]
+    return [({}, fd.smem_bytes(g, d))]
 
 
 def _fd_runner(problem: dict[str, Any], cfg: dict[str, int],
@@ -332,15 +335,23 @@ def _fpd_candidates(problem: dict[str, Any]
     # walk.  Ascending enumeration + effective-coverage dedup (the smallest
     # covering page keeps pool padding minimal); the default page size is
     # force-included even when it collapses, as in the JAX package.
-    g = problem["h"] // problem["kv_heads"]
     out, seen = [], set()
     for ps in sorted(set(TILE_SIZES) | {8, 16, DEFAULT_PAGE_SIZE}):
         eff = min(ps, problem["max_len"])
         if eff in seen and ps != DEFAULT_PAGE_SIZE:
             continue
         seen.add(eff)
-        out.append(({"page_size": ps}, fdp.smem_bytes(g, problem["d"], ps)))
+        out.append(({"page_size": ps}, _fpd_smem(problem, ps)))
     return out
+
+
+def _fpd_smem(problem: dict[str, Any], page_size: int) -> int:
+    """Shared memory of a flash_decode_paged launch at ``page_size``, for
+    the variant the problem's dtype and D take."""
+    g, d = problem["h"] // problem["kv_heads"], problem["d"]
+    if dtc.variant(problem["dtype"], problem["dtype"], d) == "tc":
+        return fdp.smem_bytes_tc(d, page_size)
+    return fdp.smem_bytes(g, d, page_size)
 
 
 def _fpd_runner(problem: dict[str, Any], cfg: dict[str, int],
@@ -367,8 +378,7 @@ SEGMENT_TOKENS = 32          # fixed token budget every candidate pays
 
 def _pseg_candidates(problem: dict[str, Any]
                      ) -> list[tuple[dict[str, int], int]]:
-    g = problem["h"] // problem["kv_heads"]
-    smem = fdp.smem_bytes(g, problem["d"], problem["page_size"])
+    smem = _fpd_smem(problem, problem["page_size"])
     return [({"segment_len": sl}, smem) for sl in (2, 4, 8, 16,
                                                    SEGMENT_TOKENS)]
 

@@ -9,6 +9,16 @@ One generated token per sequence attends over the contiguous decode cache
 package's ``kernels/flash_decode.py``; it picks its own tiling (no
 ``block_kv`` argument) and handles any cache length without a pad copy.
 
+Two variants, picked by ``decode_tc.variant`` from the dtypes and D: bf16
+q and cache at D = 64 or 128 take the split-KV tensor-core kernel
+(``"tc"``: fixed chunks of ``decode_tc.CHUNK`` slots, one CTA per chunk,
+kv head and sequence writing partials to a workspace, a second kernel
+combining them in chunk order; the main loop it shares with
+``flash_decode_paged``'s); fp32, mixed fp32/bf16 and other head dims take
+the fp32 CUDA-core kernel (``"ffma"``).  ``launches`` counts every call,
+``launches_tc`` those of the tensor-core variant, and ``last_launch``
+holds the variant, the chunk and the number of chunks the last call ran.
+
 A CPU tensor goes to :func:`flash_decode_plain`; a CUDA tensor goes to the
 kernel or raises.
 """
@@ -21,13 +31,17 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import decode_tc as dtc
 from repro_torch.models import layers as L
 
 SMEM_LIMIT = 227 * 1024      # dynamic shared memory a CTA may use (H100)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# kernel launches since the count was last set to 0
+# kernel calls since the counts were last set to 0: all, and those of the
+# tensor-core variant
 launches = 0
+launches_tc = 0
+last_launch: dict = {}
 
 
 def _align4(n: int) -> int:
@@ -58,6 +72,13 @@ def _lib() -> ctypes.CDLL:
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         sm = lib.flash_decode_smem_bytes
+        sm.argtypes = [ctypes.c_int] * 2
+        sm.restype = ctypes.c_longlong
+        tc = lib.flash_decode_tc_launch
+        tc.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.c_void_p])
+        tc.restype = ctypes.c_int
+        sm = lib.flash_decode_tc_smem_bytes
         sm.argtypes = [ctypes.c_int] * 2
         sm.restype = ctypes.c_longlong
     return lib
@@ -98,23 +119,39 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     True where the cache slot participates (shared across the batch: the
     decode position is a scalar).  Returns (B,1,H,D) in q's dtype (fp32
     inside)."""
-    global launches
+    global launches, launches_tc, last_launch
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, mask)
     _check(q, k, v, mask)
     b, _, h, d = q.shape
     _, cache_len, kvh, _ = k.shape
     lib = _lib()
-    if smem_bytes(h // kvh, d) > SMEM_LIMIT:
+    var = dtc.variant(q.dtype, k.dtype, d)
+    if var == "ffma" and smem_bytes(h // kvh, d) > SMEM_LIMIT:
         raise ValueError(f"flash_decode: g={h // kvh}, D={d} does not fit "
                          f"in shared memory")
     mask_u8 = mask.view(torch.uint8) if mask.dtype == torch.bool else mask
     out = torch.empty_like(q)
-    err = lib.flash_decode_launch(
-        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(mask_u8),
-        _build.ptr(out), b, h, kvh, d, cache_len, _DTYPES[q.dtype],
-        _DTYPES[k.dtype], 1.0 / math.sqrt(d), _build.current_stream(q.device))
+    ptrs = (_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(mask_u8),
+            _build.ptr(out))
+    stream = _build.current_stream(q.device)
+    if var == "tc":
+        n = dtc.n_chunks(cache_len, dtc.CHUNK)
+        ws = torch.empty(dtc.workspace_floats(b, kvh, n, h // kvh, d),
+                         dtype=torch.float32, device=q.device)
+        err = lib.flash_decode_tc_launch(
+            *ptrs, _build.ptr(ws), b, h, kvh, d, cache_len, dtc.CHUNK, n,
+            1.0 / math.sqrt(d), stream)
+        launch = {"variant": var, "chunk": dtc.CHUNK, "n_chunks": n}
+    else:
+        err = lib.flash_decode_launch(
+            *ptrs, b, h, kvh, d, cache_len, _DTYPES[q.dtype],
+            _DTYPES[k.dtype], 1.0 / math.sqrt(d), stream)
+        launch = {"variant": var}
     if err != 0:
-        raise RuntimeError(f"flash_decode launch failed: cudaError {err}")
+        raise RuntimeError(f"flash_decode ({var}) launch failed: "
+                           f"cudaError {err}")
     launches += 1
+    launches_tc += var == "tc"
+    last_launch = launch
     return out
