@@ -6,21 +6,27 @@ Phases, each printing one JSON line or more:
 1. device    — ``nvidia-smi`` name and power limit;
 2. build     — every CUDA kernel from ``src/repro_torch/csrc`` (nvcc, one
                process per source, all started together), its time, and
-               ``cuobjdump -sass`` of the four attention libraries: every
-               instance of the prefill pair's bf16 tensor-core variants
-               holds HGMMA, every instance of the decode pair's holds
-               HMMA (mma.sync) and LDGSTS (cp.async), and ptxas reports
-               no spill in the decode pair's;
+               ``cuobjdump -sass`` of the libraries with tensor-core
+               variants: every instance of the prefill pair's holds
+               HGMMA (flash_attention's also UTMALDG, TMA), every one of
+               the decode pair's HMMA (mma.sync) and LDGSTS (cp.async),
+               every one of the GEMM pair's UTMALDG and IGMMA
+               (quant_matmul, s8) or HGMMA (block_sparse_matmul, bf16),
+               and ptxas reports no spill in the decode and GEMM pairs';
 3. kernels   — each kernel against its plain PyTorch version on CUDA
                tensors at smoke and full-width shapes: the attention
                kernels and block_sparse_matmul in fp32 and bf16 within
-               tolerance, quant_matmul exactly equal (int32 wrap past
-               K = 133,143 included); each wrapper's shared-memory model
-               against the number its kernel library exports; then the
-               bf16 tensor-core variants of flash_prefill_ragged and
-               flash_attention at D = 64 and 128 (page sizes 4 to 128,
-               ragged offsets and lens, Sq != Skv, windows, every tile)
-               and two launches of each, bit for bit; then the bf16
+               tolerance (bf16 at each tensor-core tile, and two launches
+               bit for bit), quant_matmul exactly equal on the variant
+               each shape takes (int32 wrap past K = 133,143 included),
+               and equal bits from two launches and from forced split
+               counts; each wrapper's shared-memory model and
+               quant_matmul's split plan against the numbers its kernel
+               library exports; then the bf16 tensor-core variants of
+               flash_prefill_ragged and flash_attention at D = 64 and
+               128 (page sizes 4 to 128, ragged offsets and lens,
+               Sq != Skv, windows, every tile) and two launches of each,
+               bit for bit; then the bf16
                split-KV variants of flash_decode_paged and flash_decode
                at D = 64 and 128 (page sizes 4 to 256, ragged last
                chunks, wrapped rings, rows with no live slot), two
@@ -39,25 +45,27 @@ Phases, each printing one JSON line or more:
                tokens) under the bf16 and the int8-mlp policy; each run's
                launch counts must match its layers × steps, and every
                flash_prefill_ragged and flash_decode_paged launch of the
-               burst and every flash_decode launch of bf16 ``generate``
-               must take the tensor-core variant;
+               burst, every flash_decode launch of bf16 ``generate`` and
+               every quant_matmul launch of int8-mlp ``generate`` must
+               take the tensor-core variant;
 6. timing    — kernel, plain-version, roofline-bound and library times at
                the phase-5 shapes (flash_prefill_ragged also at the
                burst's shared-prefix dispatch), and at the phase-8 shapes
                for block_sparse_matmul and flash_attention (also bf16 at
-               (1, 512) and (1, 4096)); the attention rows name the
-               variant and tiles (decode: chunk and chunks) that ran,
-               and the decode rows split their device time by kernel
-               (torch.profiler);
+               (1, 512) and (1, 4096)); quant_matmul also at the down
+               projection (M = 8) and TUNE's two problems (M = 128); the
+               rows name the variant and tiles (decode: chunk and
+               chunks; quant_matmul: splits) that ran, and the decode
+               rows split their device time by kernel (torch.profiler);
 8. tune      — the TUNE O-task's flow at full width: ``ModelGen``
                (Qwen2-7B, 28 layers, bf16, seed 0) → a 50 % block mask
                on ``lm_head`` (standing in for PRUNING, whose LM path
                fine-tunes and waits for the training slice) → ``Tune``
                over the four largest problems, with launch counts equal
-               to the trials' (warmup + iters), a second execution all
-               cache hits, and the tuned dispatchers against their plain
-               versions.  Runs before phase 6, whose rows report its
-               launch counts.
+               to the trials' (warmup + iters), every GEMM launch on its
+               tensor-core variant, a second execution all cache hits,
+               and the tuned dispatchers against their plain versions.
+               Runs before phase 6, whose rows report its launch counts.
 
 Then one ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line, and the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises and
@@ -71,7 +79,11 @@ busy share, the admission dispatches' share of device time, the top
 kernels and host ops — and over 16 contiguous decode steps under each
 policy) runs only when asked.
 
-Usage: ``python3 chip_smoke.py [--phases 1,2,3,4,5,6,8[,7]]``.
+Usage: ``python3 chip_smoke.py [--phases 1,2,3,4,5,6,8[,7]] [--src DIR]``.
+``--src`` drives the ``repro_torch`` under another tree (e.g. the parent
+commit unpacked beside this one) with this script's phases; with
+``--phases 1,6`` that times both commits' kernels with the same rows in one
+call.
 """
 
 from __future__ import annotations
@@ -115,13 +127,13 @@ def bf16_tol(ref) -> float:
 
 
 # ------------------------------------------------------------------ phases
-def phase_device() -> str:
+def phase_device(src: Path) -> str:
     line = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
     import torch
-    emit({"phase": "device", "nvidia_smi": line,
+    emit({"phase": "device", "nvidia_smi": line, "src": str(src),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count()})
@@ -141,7 +153,7 @@ def phase_build() -> None:
         ptxas[name] = [ln.strip() for ln in log.splitlines()
                        if "registers" in ln or "spill" in ln][:8]
         tc_ptxas[name] = _tc_ptxas(log)
-    for name in DECODE_TC:
+    for name in DECODE_TC + GEMM_TC:
         spills = {f: v for f, v in tc_ptxas[name].items()
                   if v["spill_stores"] or v["spill_loads"]}
         if len(tc_ptxas[name]) != TC_INSTANCES[name][0] or spills:
@@ -178,23 +190,29 @@ def _tc_ptxas(log: str) -> dict:
     return out
 
 
-# instances of each bf16 tensor-core variant and the SASS instructions
-# each must hold: (block_q, block_kv, D) and (block_q, D) with wgmma for
-# the prefill pair, (D, stages) with mma.sync and cp.async for the decode
-# pair
-TC_INSTANCES = {"flash_attention": (8, ("HGMMA",)),
+# instances of each tensor-core variant and the SASS instructions each
+# must hold: (block_q, block_kv, D) and (block_q, D) with wgmma for the
+# prefill pair (TMA for flash_attention), (D, stages) with mma.sync and
+# cp.async for the decode pair, and wgmma fed by TMA for the GEMM pair
+# (IGMMA: the integer wgmma of quant_matmul): quant_matmul's for 256
+# rows of N unswapped and M up to 8, 16, 32 and 64 swapped,
+# block_sparse_matmul's M tiles 64, 128 and 256
+TC_INSTANCES = {"flash_attention": (8, ("HGMMA", "UTMALDG")),
                 "flash_prefill_ragged": (4, ("HGMMA",)),
                 "flash_decode_paged": (4, ("HMMA", "LDGSTS")),
-                "flash_decode": (4, ("HMMA", "LDGSTS"))}
+                "flash_decode": (4, ("HMMA", "LDGSTS")),
+                "quant_matmul": (5, ("IGMMA", "UTMALDG")),
+                "block_sparse_matmul": (3, ("HGMMA", "UTMALDG"))}
 DECODE_TC = ("flash_decode_paged", "flash_decode")
+GEMM_TC = ("quant_matmul", "block_sparse_matmul")
 
 
 def _check_tc_sass(libs) -> dict:
-    """``cuobjdump -sass`` of the four attention libraries: every instance
-    of a tensor-core variant must hold its product and copy instructions
-    (:data:`TC_INSTANCES`); the counts of HGMMA (wgmma), HMMA (mma.sync),
-    TMA loads (UTMALDG) and cp.async copies (LDGSTS) show how its tiles
-    arrive and multiply."""
+    """``cuobjdump -sass`` of the libraries with tensor-core variants:
+    every instance of one must hold its product and copy instructions
+    (:data:`TC_INSTANCES`); the counts of HGMMA and IGMMA (wgmma, float
+    and integer), HMMA (mma.sync), TMA loads (UTMALDG) and cp.async copies
+    (LDGSTS) show how its tiles arrive and multiply."""
     from repro_torch.kernels import _build
     tool = Path(_build._nvcc()).parent / "cuobjdump"
     out = {}
@@ -204,8 +222,8 @@ def _check_tc_sass(libs) -> dict:
                               text=True).stdout
         funcs = [f for f in sass.split("Function : ")[1:]
                  if "_tc_kernel" in f.split("\n", 1)[0]]
-        counts = [{op: f.count(op) for op in ("HGMMA", "HMMA", "UTMALDG",
-                                              "LDGSTS")}
+        counts = [{op: f.count(op) for op in ("HGMMA", "IGMMA", "HMMA",
+                                              "UTMALDG", "LDGSTS")}
                   for f in funcs]
         if len(funcs) != n_inst or any(c[op] == 0 for c in counts
                                        for op in need):
@@ -279,7 +297,7 @@ def _read_counts() -> dict:
 
 
 def _read_tc_counts() -> dict:
-    """Launches of the bf16 tensor-core variants (attention kernels)."""
+    """Launches of the tensor-core variants."""
     return {name: mod.launches_tc for name, mod in _kernel_modules().items()
             if hasattr(mod, "launches_tc")}
 
@@ -308,18 +326,44 @@ def _contig_masks(cache_len: int) -> list:
     return out
 
 
+# Qwen2-7B's MLP at decode (M = 8) and prefill (M = 4096), TUNE's embed
+# product at M = 128, K no multiple of 16 (the mma.sync kernel), then the
+# tensor-core kernel's ragged edges: M, N and the last k-block ragged,
+# swapped (M <= 64) and not, with and without a split
 QMM_SHAPES = ((8, 3584, 18944), (8, 18944, 3584), (4096, 3584, 18944),
               (4096, 18944, 3584), (3, 56, 40), (5, 100, 17),
-              (130, 72, 200), (128, 152064, 3584))
+              (130, 72, 200), (128, 152064, 3584), (3, 80, 40),
+              (17, 2064, 1000), (64, 1024, 200), (65, 272, 136),
+              (70, 4112, 300), (200, 512, 520))
 
 
-def _check_quant_matmul(gen) -> int:
-    """quant_matmul against its plain version, exactly: the decode
-    (M = 8) and prefill (M = 4096) shapes of Qwen2-7B's MLP, and ragged
-    shapes whose K is no multiple of 16 (the kernel's scalar load path)."""
+def _expect_qmm(qmm, gemm_tc, m, k, n, splits=None) -> None:
+    """The launch took the variant (and the tc plan) that the shape
+    gives."""
+    if gemm_tc.qmm_variant(k) == "tc":
+        plan = gemm_tc.qmm_plan(m, n, k)
+        want = {"variant": "tc", "tiles": (plan["block_a"], plan["block_b"]),
+                "swap": plan["swap"],
+                "splits": plan["splits"] if splits is None else splits}
+    else:
+        want = {"variant": "mma", "tiles": qmm.MMA_TILES, "swap": False,
+                "splits": 1}
+    if qmm.last_launch != want:
+        raise AssertionError(f"quant_matmul {(m, k, n)}: launch "
+                             f"{qmm.last_launch}, expected {want}")
+
+
+def _check_quant_matmul(gen) -> dict:
+    """quant_matmul against its plain version, exactly, each shape of
+    :data:`QMM_SHAPES` on the variant it takes; the int32 wrap (K =
+    152,064 at +-127) on the tensor-core kernel; then the same bits from
+    two launches and from forced split counts (1, 3 and 37 besides the
+    plan's) through the launcher's split argument, at the down projection
+    (M = 8) and TUNE's embed product (M = 128)."""
     import torch
+    from repro_torch.kernels import gemm_tc
     from repro_torch.kernels import quant_matmul as qmm
-    n = 0
+    n_cases, variants = 0, {}
     for m, k, nn in QMM_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             if (m == 4096 or k > 100_000) and dtype == torch.float32:
@@ -327,6 +371,7 @@ def _check_quant_matmul(gen) -> int:
             x = torch.randn((m, k), generator=gen).to(dtype).cuda()
             w = (0.02 * torch.randn((k, nn), generator=gen)).to(dtype).cuda()
             out = qmm.quant_matmul(x, w)
+            _expect_qmm(qmm, gemm_tc, m, k, nn)
             ref = qmm.quant_matmul_plain(x, w)
             torch.cuda.synchronize()
             if out.shape != (m, nn) or not torch.equal(out, ref):
@@ -334,8 +379,9 @@ def _check_quant_matmul(gen) -> int:
                     else -1
                 raise AssertionError(
                     f"quant_matmul {(m, k, nn)} {dtype}: {bad} elements "
-                    f"differ from the plain version")
-            n += 1
+                    f"differ from the plain version ({qmm.last_launch})")
+            variants[str((m, k, nn))] = dict(qmm.last_launch)
+            n_cases += 1
     # every product at +-127: 127 * 127 * 152,064 passes 2**31, so the
     # int32 sums wrap (to negative values) in the kernel and the plain
     # version alike
@@ -343,12 +389,31 @@ def _check_quant_matmul(gen) -> int:
     w = torch.ones((152064, 64), device="cuda")
     w[:, 32:] = -1.0
     out = qmm.quant_matmul(x, w)
+    _expect_qmm(qmm, gemm_tc, 8, 152064, 64)
     ref = qmm.quant_matmul_plain(x, w)
     torch.cuda.synchronize()
     if not torch.equal(out, ref) or not bool((out[:, :32] < 0).all()):
         raise AssertionError(f"quant_matmul int32 wrap: kernel {out[0, :2]} "
                              f"plain {ref[0, :2]}")
-    return n + 1
+    variants["wrap (8, 152064, 64)"] = dict(qmm.last_launch)
+    bits = {}
+    for m, k, nn in ((8, 18944, 3584), (128, 152064, 3584)):
+        x = torch.randn((m, k), generator=gen).to(torch.bfloat16).cuda()
+        w = (0.02 * torch.randn((k, nn), generator=gen)).to(
+            torch.bfloat16).cuda()
+        ops = qmm.quantize_operands(x, w)
+        base = qmm.int8_matmul(*ops)
+        same = {"two_launches": torch.equal(base, qmm.int8_matmul(*ops))}
+        for splits in (1, 3, 37):
+            out = qmm._launch(*ops, splits=splits)
+            _expect_qmm(qmm, gemm_tc, m, k, nn, splits)
+            same[f"splits_{splits}"] = torch.equal(out, base)
+        same["plain"] = torch.equal(base, qmm.int8_matmul_plain(*ops))
+        same["plan_splits"] = gemm_tc.qmm_plan(m, nn, k)["splits"]
+        if not all(same.values()):
+            raise AssertionError(f"quant_matmul {(m, k, nn)} bits: {same}")
+        bits[str((m, k, nn))] = same
+    return {"cases": n_cases + 1, "variants": variants, "bits": bits}
 
 
 # index lists of a (384, 256) weight (3 x 2 blocks): a dead column and a
@@ -357,26 +422,42 @@ BSMM_KINDEX = {"dead_and_dense": [[-1, -1, -1], [0, 1, 2]],
                "excluded_nonzero": [[0, 2], [1, -1]]}
 
 
+def _expect_bsmm(bsmm, gemm_tc, dtype, bm) -> None:
+    import torch
+    on_tc = dtype == torch.bfloat16
+    want = {"variant": "tc" if on_tc else "ffma",
+            "block_m": gemm_tc.bsmm_tile(bm) if on_tc else bm}
+    if bsmm.last_launch != want:
+        raise AssertionError(f"block_sparse_matmul: launch "
+                             f"{bsmm.last_launch}, expected {want}")
+
+
 def _check_block_sparse(gen, worst) -> int:
     """block_sparse_matmul against its plain version: the CPU tests'
-    (256, 384) @ (384, 256) cases, then problem 3 of phase 8 — Qwen2-7B's
-    lm_head shape (3584, 152064) under a 50 % block mask from
-    ``sparsity.masks.block_mask``, at M = 128 — with the masked weight and
-    with the unmasked one (blocks outside kindex must not be read)."""
+    (256, 384) @ (384, 256) cases (a dead column, a dense one, a column
+    that skips a block that is nonzero in w) at block_m 32, 64 and 128 and,
+    in bf16, 256 (the tensor-core tiles 64, 64, 128, 256), then problem 3
+    of phase 8 — Qwen2-7B's lm_head shape (3584, 152064) under a 50 %
+    block mask from ``sparsity.masks.block_mask``, at M = 128 — with the
+    masked weight and with the unmasked one (blocks outside kindex must
+    not be read), and two bf16 launches bit for bit."""
     import torch
     from repro_torch.kernels import block_sparse_matmul as bsmm
+    from repro_torch.kernels import gemm_tc
     from repro_torch.sparsity.masks import block_map, block_mask
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
         x = torch.randn((256, 384), generator=gen).to(dtype).cuda()
         w = torch.randn((384, 256), generator=gen).to(dtype).cuda()
+        bms = (32, 64, 128, 256) if dtype == torch.bfloat16 else (32, 64, 128)
         for case, rows in BSMM_KINDEX.items():
             kidx = torch.tensor(rows, dtype=torch.int32, device="cuda")
             ref = bsmm.block_sparse_matmul_plain(x, w, kidx)
-            for bm in (32, 64, 128):
-                _compare("block_sparse_matmul",
-                         bsmm.block_sparse_matmul(x, w, kidx, block_m=bm),
-                         ref, dtype, worst, (case, bm),
+            for bm in bms:
+                out = bsmm.block_sparse_matmul(x, w, kidx, block_m=bm)
+                _expect_bsmm(bsmm, gemm_tc, dtype, bm)
+                _compare("block_sparse_matmul", out, ref, dtype, worst,
+                         (case, bm),
                          MM_FP32_REL * float(ref.float().abs().max()))
                 n += 1
     g = torch.Generator(device="cuda").manual_seed(3)
@@ -390,16 +471,22 @@ def _check_block_sparse(gen, worst) -> int:
     for label, ww in (("masked", wm), ("unmasked", w)):
         ref = bsmm.block_sparse_matmul_plain(x, ww, kidx)
         for bm in (32, 64, 128):
-            _compare("block_sparse_matmul",
-                     bsmm.block_sparse_matmul(x, ww, kidx, block_m=bm), ref,
-                     torch.bfloat16, worst, ("lm_head", label, bm))
+            out = bsmm.block_sparse_matmul(x, ww, kidx, block_m=bm)
+            _expect_bsmm(bsmm, gemm_tc, torch.bfloat16, bm)
+            _compare("block_sparse_matmul", out, ref, torch.bfloat16, worst,
+                     ("lm_head", label, bm))
             n += 1
+    a, b = (bsmm.block_sparse_matmul(x, wm, kidx) for _ in range(2))
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise AssertionError("block_sparse_matmul bf16: two launches differ")
     xf, wf = x.float(), wm.float()
     del w, wm
     ref = bsmm.block_sparse_matmul_plain(xf, wf, kidx)
-    _compare("block_sparse_matmul", bsmm.block_sparse_matmul(xf, wf, kidx),
-             ref, torch.float32, worst, ("lm_head", "fp32"),
-             MM_FP32_REL * float(ref.abs().max()))
+    out = bsmm.block_sparse_matmul(xf, wf, kidx)
+    _expect_bsmm(bsmm, gemm_tc, torch.float32, 128)
+    _compare("block_sparse_matmul", out, ref, torch.float32, worst,
+             ("lm_head", "fp32"), MM_FP32_REL * float(ref.abs().max()))
     return n + 1
 
 
@@ -719,11 +806,37 @@ def _check_smem_models() -> int:
             pairs.append((("fpr_tc", bq, d), fpr.smem_bytes_tc(bq, d),
                           fpr._lib().flash_prefill_ragged_tc_smem_bytes(
                               bq, d)))
+    pairs += _qmm_plan_pairs()
     bad = [(case, py, c) for case, py, c in pairs if py != c]
     if bad:
         raise AssertionError(f"shared-memory models differ from the kernels' "
                              f"(case, python, library): {bad[:8]}")
     return len(pairs)
+
+
+def _qmm_plan_pairs() -> list:
+    """quant_matmul's tc plan in Python (``gemm_tc.qmm_plan``) and in the
+    library (``quant_matmul_tc_plan``) at every tc shape of phases 3 and 6
+    and at Qwen2-7B's projections for M from 1 to 4096."""
+    import ctypes
+    from repro_torch.kernels import gemm_tc
+    from repro_torch.kernels import quant_matmul as qmm
+    keys = ("swap", "block_a", "block_b", "splits", "k_per_split", "stages",
+            "smem_bytes")
+    shapes = {(m, k, n) for m, k, n in QMM_SHAPES if k % 16 == 0}
+    shapes |= {(8, 152064, 64), (128, 3584, 152064)}
+    for m in (1, 8, 9, 16, 33, 64, 65, 128, 512, 4096):
+        for k, n in ((3584, 18944), (18944, 3584), (3584, 4608),
+                     (3584, 3584), (3584, 152064), (152064, 3584)):
+            shapes.add((m, k, n))
+    out = []
+    buf = (ctypes.c_longlong * len(keys))()
+    for m, k, n in sorted(shapes):
+        qmm._lib().quant_matmul_tc_plan(m, n, k, buf)
+        plan = gemm_tc.qmm_plan(m, n, k)
+        out.append((("qmm_plan", m, k, n), [int(plan[key]) for key in keys],
+                    list(buf)))
+    return out
 
 
 def phase_kernels() -> dict:
@@ -784,7 +897,8 @@ def phase_kernels() -> dict:
                          fd.flash_decode_plain(q, k, v, mask), dtype, worst,
                          (b, h, kvh, d, n, case))
                 n_cases += 1
-    n_qmm = _check_quant_matmul(gen)
+    qmm_checks = _check_quant_matmul(gen)
+    n_qmm = qmm_checks["cases"]
     worst["quant_matmul"] = {"bfloat16": 0.0, "float32": 0.0}
     worst["block_sparse_matmul"], worst["flash_attention"] = {}, {}
     n_cases += _check_block_sparse(gen, worst)
@@ -801,7 +915,8 @@ def phase_kernels() -> dict:
           "block_sparse_fp32_tol": "1e-5 * max|plain|",
           "bf16_tol": "2**-7 * max|plain| + 1e-6 (one bf16 ulp)",
           "quant_matmul": f"{n_qmm} cases exactly equal, int32 wrap "
-                          f"included",
+                          f"included", "quant_matmul_variants":
+          qmm_checks["variants"], "quant_matmul_bits": qmm_checks["bits"],
           "smem_models_checked": n_smem, "max_abs_err": worst})
     return worst
 
@@ -1008,7 +1123,8 @@ def phase_serve() -> dict:
     # and every decode step's attention goes to the tensor-core variant
     want_tc = {"flash_decode_paged": counts["flash_decode_paged"],
                "flash_prefill_ragged": counts["flash_prefill_ragged"],
-               "flash_decode": 0, "flash_attention": 0}
+               "flash_decode": 0, "quant_matmul": 0,
+               "block_sparse_matmul": 0, "flash_attention": 0}
     if tc_counts != want_tc:
         raise AssertionError(f"tensor-core launches {tc_counts}, expected "
                              f"{want_tc}")
@@ -1079,6 +1195,12 @@ def phase_generate(cfg, lm) -> dict:
             raise AssertionError(f"generate {pname}: tensor-core launches "
                                  f"{tc_counts}, expected all "
                                  f"{counts['flash_decode']} flash_decode")
+        # K = 3,584 and 18,944: every int8 product on the tensor-core
+        # variant (prefill M = 4,096, decode M = 8 swapped)
+        if int8 and tc_counts["quant_matmul"] != counts["quant_matmul"]:
+            raise AssertionError(f"generate {pname}: tensor-core launches "
+                                 f"{tc_counts}, expected all "
+                                 f"{counts['quant_matmul']} quant_matmul")
         host = toks.cpu()
         if host.shape != (b, n_gen) or not bool(
                 ((host >= 0) & (host < cfg.vocab_size)).all()):
@@ -1195,6 +1317,11 @@ def phase_tune() -> dict:
         expected[p["kernel"]] += per_call
     if counts != expected:
         raise AssertionError(f"phase 8 launch counts {counts} != {expected}")
+    # bf16 products with K a multiple of 16: both GEMMs on tensor cores
+    tc_counts = _read_tc_counts()
+    if any(tc_counts[name] != counts[name] for name in GEMM_TC):
+        raise AssertionError(f"phase 8 tensor-core launches {tc_counts}, "
+                             f"expected every GEMM launch of {counts}")
     tuned = meta.latest("dnn").payload.meta["tile_configs"]
     for d in done:
         trials = [p for p in probes if p["key"] == d["key"]]
@@ -1215,8 +1342,9 @@ def phase_tune() -> dict:
                "sparsity": masked.metrics["sparsity"], "max_live": max_live,
                "problems": len(problems),
                "search_steps": meta.get("tune.result")["search_steps"],
-               "launches": counts, "expected_launches": expected,
-               "wall_s": wall, "peak_mem_gb": peak, "tile_configs": tuned}
+               "launches": counts, "launches_tc": tc_counts,
+               "expected_launches": expected, "wall_s": wall,
+               "peak_mem_gb": peak, "tile_configs": tuned}
     summary["dispatch"] = _tuned_dispatch(handle, tuned, cache_path)
     del meta, masked, handle
     torch.cuda.empty_cache()
@@ -1449,10 +1577,12 @@ def _time_ms(fn, reps: int, flush) -> float:
     return statistics.median(times)
 
 
-def _device_ms_by_kernel(fn, flush, reps: int = 20) -> dict:
-    """Mean device time of each kernel of ``fn`` over ``reps`` calls, each
-    after an L2 flush, from torch.profiler (the flush's own kernel left
-    out): where a two-kernel call's time goes."""
+def _device_ms_by_kernel(fn, flush, reps: int = 20,
+                         match: str = "decode") -> dict:
+    """Mean device time of each kernel of ``fn`` whose name holds
+    ``match`` over ``reps`` calls, each after an L2 flush, from
+    torch.profiler (the flush's own kernel left out): where a two-kernel
+    call's time goes."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1465,7 +1595,7 @@ def _device_ms_by_kernel(fn, flush, reps: int = 20) -> dict:
     return {e.key[:60]: e.device_time_total / e.count / 1e3
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.count == reps and "decode" in e.key}
+            and e.count == reps and match in e.key}
 
 
 def phase_timing(launches: dict) -> list:
@@ -1588,8 +1718,9 @@ def _prefill_row(gen, launches, flush, sdpa_gqa, offs, lens, s) -> dict:
 
 def _block_sparse_row(launches, flush) -> dict:
     """Problem 3 of phase 8: x (128, 3584) bf16 @ a (3584, 152064) bf16
-    weight under a 50 % block mask (``block_mask``), at each block_m the
-    tuner tries (the row's ``ms`` at the default 128).  Bytes: x, the live
+    weight under a 50 % block mask (``block_mask``), at block_m 32 to 256
+    (the row's ``ms`` at the default 128), with the variant and M tile
+    each ran.  Bytes: x, the live
     w blocks and out once; operations: 2 * 128 * 128 * 128 per live block.
     Library: ``torch.matmul`` on the masked dense weight."""
     import torch
@@ -1607,6 +1738,7 @@ def _block_sparse_row(launches, flush) -> dict:
     kidx = torch.from_numpy(bsmm.compact_block_index(occ)).cuda()
     live = int(occ.sum())
     out = bsmm.block_sparse_matmul(x, wm, kidx)
+    launch = dict(getattr(bsmm, "last_launch", {}))
     ref = bsmm.block_sparse_matmul_plain(x, wm, kidx)
     err = float((out.float() - ref.float()).abs().max())
     nbytes = 2 * m * k + 2 * live * 128 * 128 + 4 * kidx.numel() + 2 * m * n
@@ -1621,9 +1753,17 @@ def _block_sparse_row(launches, flush) -> dict:
                 "live_blocks": live, "max_live": int(kidx.shape[1]),
                 "dtype": "bfloat16"})
     row["library_note"] = "torch.matmul on the masked dense weight"
-    row["ms_by_block_m"] = {bm: _time_ms(
-        lambda bm=bm: bsmm.block_sparse_matmul(x, wm, kidx, block_m=bm), 20,
-        flush) for bm in (32, 64, 128)}
+    row["variant"] = launch.get("variant")
+    row["tiles"] = {"block_m": launch.get("block_m")}
+    # block_m requests and the M tile each ran (bf16: the tensor-core
+    # tiles; 256 clamps to M = 128)
+    row["ms_by_block_m"], row["tile_by_block_m"] = {}, {}
+    for bm in (32, 64, 128, 256):
+        row["ms_by_block_m"][bm] = _time_ms(
+            lambda bm=bm: bsmm.block_sparse_matmul(x, wm, kidx, block_m=bm),
+            20, flush)
+        row["tile_by_block_m"][bm] = getattr(bsmm, "last_launch",
+                                             {}).get("block_m")
     return row
 
 
@@ -1714,32 +1854,42 @@ def _flash_decode_row(gen, launches, flush, sdpa_gqa) -> dict:
                 lambda: fd.flash_decode(q, k, v, mask), flush)}
 
 
-# Qwen2-7B's gate/up projection at decode and at the phase-5 prefill
-QMM_ROW = dict(k=3584, n=18944, m=(8, 4096))
+# Qwen2-7B's gate/up projection at decode (the row's own numbers) and at
+# the phase-5 prefill, its down projection at decode and at prefill, and
+# TUNE's two quant_matmul problems (embed and lm_head at M = 128):
+# (label, M, K, N)
+QMM_ROWS = (("gate_up_8", 8, 3584, 18944), ("prefill", 4096, 3584, 18944),
+            ("down_8", 8, 18944, 3584), ("prefill_down", 4096, 18944, 3584),
+            ("tune_embed", 128, 152064, 3584),
+            ("tune_lm_head", 128, 3584, 152064))
+QMM_SUB_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "library_note", "quantize_ms", "wrapper_ms", "max_abs_err",
+                "shapes", "variant", "tiles", "swap", "splits",
+                "device_ms_by_kernel")
 
 
 def _quant_matmul_row(gen, launches, flush) -> dict:
-    """The int8 product at the decode shape (M = 8, the 63 of 64 calls per
-    layer and MLP weight that decode makes) on operands already quantized,
-    with the prefill shape (M = 4096) and the weight quantization that
-    every call also pays timed beside it.  Library: ``torch._int_mm`` on
-    the same int8 operands (int32 out, no dequantization), which refuses
-    M <= 16."""
+    """The int8 product on operands already quantized, at each shape of
+    :data:`QMM_ROWS`, with the variant, tiles and splits that ran, and the
+    weight quantization that every call also pays (``quantize_ms``) and
+    the whole wrapper (``wrapper_ms``) timed beside it.  Library:
+    ``torch._int_mm`` on the same int8 operands (int32 out, no
+    dequantization), which refuses M <= 16."""
     import torch
     from repro_torch.kernels import quant_matmul as qmm
-    k, n = QMM_ROW["k"], QMM_ROW["n"]
-    extra = {}
     row = None
-    for m in QMM_ROW["m"]:
+    for label, m, k, n in QMM_ROWS:
         x = torch.randn((m, k), generator=gen).to(torch.bfloat16).cuda()
         w = (0.02 * torch.randn((k, n), generator=gen)).to(
             torch.bfloat16).cuda()
         ops = qmm.quantize_operands(x, w)
         xq, xs, wq, ws = ops
         out = qmm.int8_matmul(*ops)
+        launch = dict(getattr(qmm, "last_launch", {}))
         ref = qmm.int8_matmul_plain(*ops)
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
+        del out, ref
         nbytes = m * k + 4 * m + n * k + 4 * n + 4 * m * n
         flops = 2 * m * n * k
         wt = wq.t()
@@ -1753,20 +1903,23 @@ def _quant_matmul_row(gen, launches, flush) -> dict:
                  lambda: qmm.int8_matmul(*ops),
                  lambda: qmm.int8_matmul_plain(*ops), lib, nbytes, flops,
                  flush, {"M": m, "K": k, "N": n, "x": "bfloat16",
-                         "operands": "int8, quantized"},
+                         "operands": "int8, quantized", "shape": label},
                  peak_ops=H100_INT8_OPS)
         r["library_note"] = why or "torch._int_mm, int32 out"
         r["quantize_ms"] = _time_ms(lambda: qmm.quantize_operands(x, w), 5,
                                     flush)
         r["wrapper_ms"] = _time_ms(lambda: qmm.quant_matmul(x, w), 5, flush)
+        r.update(variant=launch.get("variant"), tiles=launch.get("tiles"),
+                 swap=launch.get("swap"), splits=launch.get("splits"))
+        if m == 8:      # split K: the partial products and the combine
+            r["device_ms_by_kernel"] = _device_ms_by_kernel(
+                lambda: qmm.int8_matmul(*ops), flush, match="qmm")
         if row is None:
             row = r
         else:
-            extra = {key: r[key] for key in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "library_note", "quantize_ms", "wrapper_ms", "max_abs_err",
-                "shapes")}
-    row["prefill"] = extra
+            row[label] = {key: r[key] for key in QMM_SUB_KEYS if key in r}
+        del x, w, ops, xq, xs, wq, ws, wt, lib
+        torch.cuda.empty_cache()
     return row
 
 
@@ -1791,6 +1944,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="1,2,3,4,5,6,8",
                     help="comma-separated phases to run (default: all)")
+    ap.add_argument("--src", default=str(ROOT / "src"),
+                    help="the tree whose repro_torch to drive (default: "
+                         "this checkout's); another commit's src/ with "
+                         "--phases 1,6 times its kernels with this "
+                         "script's rows")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     try:
@@ -1802,18 +1960,19 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
-    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
-        print(f"chip_smoke: {ROOT / 'src' / 'repro_torch'} not found; run "
-              f"from a checkout of the repository", file=sys.stderr)
+    src = Path(args.src).resolve()
+    if not (src / "repro_torch" / "csrc").is_dir():
+        print(f"chip_smoke: {src / 'repro_torch'} not found; run from a "
+              f"checkout of the repository", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(src))
     # fp32 products and convolutions in full fp32 on the card, as the
     # plain versions they are compared with (cuDNN would use TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     (OUT / "chip_smoke.jsonl").unlink(missing_ok=True)
-    smi = phase_device()
+    smi = phase_device(src)
     if 2 in phases:
         phase_build()
     if 3 in phases:

@@ -5,8 +5,9 @@
 // k-blocks of each 128-column block of w only.  x (M, K) and w (K, N)
 // (already masked) in fp32 or bf16; kindex (N / 128, max_live) int32 lists,
 // for output column block j, the k-blocks to read, -1 padded
-// (compact_block_index).  fp32 accumulation; out (M, N) in x's dtype.  A
-// block that kindex leaves out is never read, whatever w holds there.
+// (compact_block_index).  fp32 accumulation; out (M, N) in x's dtype,
+// rounded once.  A block that kindex leaves out is never read, whatever w
+// holds there; a column block with no live k-block is 0.
 //
 // Bound on an H100: bytes.  The product reads x, the live 128 x 128 blocks
 // of w and writes out; at M = 128 (the TUNE problem of Qwen2-7B's lm_head)
@@ -16,24 +17,28 @@
 // Design.  The TPU kernel walked a sequential grid (i, j, t) and carried
 // an fp32 (block_m, 128) accumulator across t in VMEM, with the k-block of
 // step t prefetched as a scalar.  Here one CTA owns an output tile of
-// block_m rows x one 128-column block, reads its own kindex row and walks
-// its live k-blocks in index order, skipping -1 entries, with the sums in
+// rows x one 128-column block, reads its own kindex row and walks its live
+// k-blocks in index order, skipping -1 entries, with the sums in
 // registers: no split-K across CTAs and no atomic, so the result is
-// deterministic.  Per k-block it stages the x tile and the w block in
-// shared memory (rows padded so fragment loads fall on distinct banks)
-// and multiplies them:
-//  - bf16: 8 warps (2 x 4) issue mma.sync m16n8k16 bf16 products with fp32
-//    accumulation (products of bf16 values are exact in fp32);
-//  - fp32: FFMA on CUDA cores (no TF32, which would round the operands);
-//    each of 256 threads owns block_m / 16 rows x 8 columns.
-// block_m (the autotuned M tile) sets how often one w block is reused:
-// larger tiles read w fewer times but give fewer CTAs.  The tile is padded
-// to 32, 64, 128 or 256 rows; padding rows load as zeros and are not
-// stored.
-// What bounds this simple form: loads and products do not overlap (no
-// cp.async/TMA pipeline) and mma.sync instead of wgmma; later work.
+// deterministic.  Two variants (kernels/gemm_tc.py picks one by dtype):
+//  - bf16 ("tc"): the shared TMA/wgmma main loop of gemm_tc.cuh.  The
+//    producer reads the kindex row and issues TMA only for live entries:
+//    per k-block the x tile (rows x 128, K-major, two 64-column boxes)
+//    and the w block (128 x 128, MN-major, two boxes), into a ring of 2-4
+//    stages; the consumers run wgmma m64n128k16 bf16 x bf16 -> fp32
+//    (products of bf16 values are exact in fp32).  Tiles of 64, 128 or
+//    256 rows (one or two consumer warpgroups; a block_m request maps to
+//    the nearest); TMA zero-fills rows past M, which are not stored.
+//  - fp32 ("ffma"): FFMA on CUDA cores (no TF32, which would round the
+//    operands); each of 256 threads owns block_m / 16 rows x 8 columns,
+//    the x tile and the w block staged in shared memory (rows padded so
+//    that fragment loads fall on distinct banks) with no load pipeline.
+//    block_m (the autotuned M tile) is padded to 32, 64, 128 or 256 rows;
+//    padding rows load as zeros and are not stored.
 
 #include "common.cuh"
+#include "gemm_tc.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -42,23 +47,6 @@ using namespace repro;
 constexpr int kBlock = 128;
 constexpr int kThreads = 256;
 constexpr int kRowF = kBlock + 4;  // fp32 x-tile row stride (floats)
-constexpr int kRowH = kBlock + 8;  // bf16 tile row stride (halves)
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4],
-                                         const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
 
 // ----------------------------------------------------------------- fp32
 template <int BMP>
@@ -135,167 +123,175 @@ __global__ void __launch_bounds__(kThreads) bsmm_f32_kernel(
   }
 }
 
-// ----------------------------------------------------------------- bf16
-template <int BMP>
-__global__ void __launch_bounds__(kThreads) bsmm_bf16_kernel(
-    const __nv_bfloat16* __restrict__ x,  // (M, K)
-    const __nv_bfloat16* __restrict__ w,  // (K, N)
-    const int* __restrict__ kindex,       // (N / 128, max_live)
-    __nv_bfloat16* __restrict__ out,      // (M, N)
-    int K, int N, int bm, int max_live) {
-  constexpr int MT = BMP / 32;  // m16 tiles per warp (2 warps along M)
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* xs =
-      reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BMP][kRowH]
-  __nv_bfloat16* ws = xs + BMP * kRowH;            // [128 (k)][kRowH]
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int gq = lane / 4, tq = lane % 4;   // mma group / thread in group
-  const int wm = warp / 4, wn = warp % 4;   // warp's 16*MT rows, 32 cols
-  const int m0 = blockIdx.x * bm, j = blockIdx.y;
-  const int kblocks = K / kBlock;
-  const int* krow = kindex + (size_t)j * max_live;
-
-  float acc[MT][4][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-  for (int t = 0; t < max_live; ++t) {
-    const int kb = krow[t];
-    if (kb < 0 || kb >= kblocks) continue;  // uniform over the CTA
-    for (int i = tid; i < BMP * (kBlock / 8); i += kThreads) {
-      const int r = i / (kBlock / 8), c8 = i % (kBlock / 8);
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (r < bm)
-        val = *reinterpret_cast<const uint4*>(
-            x + (size_t)(m0 + r) * K + (size_t)kb * kBlock + 8 * c8);
-      *reinterpret_cast<uint4*>(xs + r * kRowH + 8 * c8) = val;
-    }
-    for (int i = tid; i < kBlock * (kBlock / 8); i += kThreads) {
-      const int r = i / (kBlock / 8), c8 = i % (kBlock / 8);
-      *reinterpret_cast<uint4*>(ws + r * kRowH + 8 * c8) =
-          *reinterpret_cast<const uint4*>(
-              w + ((size_t)kb * kBlock + r) * N + (size_t)j * kBlock +
-              8 * c8);
-    }
-    __syncthreads();
-#pragma unroll 2
-    for (int kk = 0; kk < kBlock; kk += 16) {
-      uint32_t bf[4][2];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int n = wn * 32 + nt * 8 + gq;
-        const __nv_bfloat16* wc = ws + (kk + 2 * tq) * kRowH + n;
-        bf[nt][0] = pack_bf16(wc[0], wc[kRowH]);
-        bf[nt][1] = pack_bf16(wc[8 * kRowH], wc[9 * kRowH]);
-      }
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const int r = wm * (BMP / 2) + mt * 16 + gq;
-        const __nv_bfloat16* xr = xs + r * kRowH + kk + 2 * tq;
-        uint32_t af[4];
-        af[0] = *reinterpret_cast<const uint32_t*>(xr);
-        af[1] = *reinterpret_cast<const uint32_t*>(xr + 8 * kRowH);
-        af[2] = *reinterpret_cast<const uint32_t*>(xr + 8);
-        af[3] = *reinterpret_cast<const uint32_t*>(xr + 8 * kRowH + 8);
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], af, bf[nt]);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = wm * (BMP / 2) + mt * 16 + gq + 8 * half;
-      if (r >= bm) continue;
-      __nv_bfloat16* o = out + (size_t)(m0 + r) * N + (size_t)j * kBlock;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int c = wn * 32 + nt * 8 + 2 * tq;
-        *reinterpret_cast<__nv_bfloat162*>(o + c) = __floats2bfloat162_rn(
-            acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
-      }
-    }
-  }
-}
-
-// Rows of the CTA's tile: block_m padded up to 32, 64, 128 or 256.
+// Rows of the fp32 kernel's tile: block_m padded up to 32, 64, 128 or
+// 256.
 inline int tile_rows(int bm) {
   return bm <= 32 ? 32 : bm <= 64 ? 64 : bm <= 128 ? 128 : 256;
 }
 
-long long smem_bytes(int bm, int dtype) {
+long long smem_bytes_f32(int bm) {
   const long long rows = tile_rows(bm);
-  if (dtype == kBFloat16) return 2LL * (rows + kBlock) * kRowH;
   return 4LL * (rows * kRowF + (long long)kBlock * kBlock);
 }
 
 template <int BMP>
-int launch(const void* x, const void* w, const int* kindex, void* out, int M,
-           int K, int N, int bm, int max_live, int dtype, cudaStream_t s) {
-  const size_t smem = (size_t)smem_bytes(bm, dtype);
+int launch_f32(const void* x, const void* w, const int* kindex, void* out,
+               int M, int K, int N, int bm, int max_live, cudaStream_t s) {
+  const size_t smem = (size_t)smem_bytes_f32(bm);
   const dim3 grid(M / bm, N / kBlock);
-  if (dtype == kBFloat16) {
-    auto kernel = bsmm_bf16_kernel<BMP>;
-    if (smem > 48 * 1024) {
-      cudaError_t e = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    kernel<<<grid, kThreads, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(w), kindex,
-        static_cast<__nv_bfloat16*>(out), K, N, bm, max_live);
-  } else {
-    auto kernel = bsmm_f32_kernel<BMP>;
-    if (smem > 48 * 1024) {
-      cudaError_t e = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    kernel<<<grid, kThreads, smem, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w), kindex,
-        static_cast<float*>(out), K, N, bm, max_live);
+  auto kernel = bsmm_f32_kernel<BMP>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
   }
+  kernel<<<grid, kThreads, smem, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w), kindex,
+      static_cast<float*>(out), K, N, bm, max_live);
   return (int)cudaGetLastError();
+}
+
+// ----------------------------------------------------- bf16 tensor-core
+using bf16 = __nv_bfloat16;
+
+// The tc tile of a block_m request: the nearest of 64, 128 and 256
+// (kernels/gemm_tc.py::bsmm_tile mirrors it).
+inline int tc_tile(int bm) { return bm < 96 ? 64 : bm < 192 ? 128 : 256; }
+
+template <int T>
+using BsmmGemm = gemm::Gemm<gemm::BF16, T, kBlock, T == 64 ? 1 : 2>;
+
+template <int T>
+__global__ void __launch_bounds__(BsmmGemm<T>::kThreads,
+                                  BsmmGemm<T>::kMinBlocks)
+    bsmm_tc_kernel(const __grid_constant__ CUtensorMap x_map,
+                   const __grid_constant__ CUtensorMap w_map,
+                   const int* __restrict__ kindex,  // (N / 128, max_live)
+                   bf16* __restrict__ out,          // (M, N)
+                   int M, int K, int N, int max_live) {
+  using G = BsmmGemm<T>;
+  extern __shared__ unsigned char bsmm_smem[];
+  uint8_t* smem = gemm::setup<G>(bsmm_smem);
+  const int m0 = blockIdx.x * T, j = blockIdx.y;
+  const int kblocks = K / kBlock;
+  const int* krow = kindex + (size_t)j * max_live;
+  int n_k = 0;
+  for (int t = 0; t < max_live; ++t)
+    n_k += krow[t] >= 0 && krow[t] < kblocks;
+  // warp-uniform role split (see attention_tc.cuh)
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  if (warp >= G::kNC * 4) {
+    if constexpr (G::kMoveRegs) tc::setmaxnreg_dec<40>();
+    if (threadIdx.x % 128 != 0) return;
+    int t = 0;   // the next kindex entry to look at
+    gemm::produce<G>(
+        smem, n_k, [&](int, uint32_t a, uint32_t b, uint64_t* bar) {
+          int kb = krow[t++];
+          while (kb < 0 || kb >= kblocks) kb = krow[t++];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            tc::tma_load_2d(a + c * T * gemm::kRowBytes, &x_map, bar,
+                            kb * kBlock + 64 * c, m0);
+            tc::tma_load_2d(b + c * kBlock * gemm::kRowBytes, &w_map, bar,
+                            j * kBlock + 64 * c, kb * kBlock);
+          }
+        });
+  } else {
+    if constexpr (G::kMoveRegs) tc::setmaxnreg_inc<232>();
+    const int wg = warp / 4;
+    float acc[G::kMT][kBlock / 2];
+    gemm::consume<G>(smem, wg, n_k, acc);
+    bf16* o = out + (size_t)j * kBlock;
+    gemm::for_each_pair<G>(wg, acc, [&](int r, int c, float v0, float v1) {
+      if (m0 + r < M)
+        *reinterpret_cast<uint32_t*>(o + (size_t)(m0 + r) * N + c) =
+            tc::pack_bf16(v0, v1);
+    });
+  }
+}
+
+template <int T>
+int launch_tc(const void* x, const void* w, const int* kindex, void* out,
+              int M, int K, int N, int max_live, cudaStream_t s) {
+  using G = BsmmGemm<T>;
+  CUtensorMap xm, wm;
+  int e = tma::encode_bf16(&xm, x, M, K, T);
+  if (e == 0) e = tma::encode_bf16(&wm, w, K, N, kBlock);
+  if (e != 0) return e;
+  auto kernel = bsmm_tc_kernel<T>;
+  const cudaError_t a = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::kSmem);
+  if (a != cudaSuccess) return (int)a;
+  const dim3 grid((M + T - 1) / T, N / kBlock);
+  kernel<<<grid, G::kThreads, G::kSmem, s>>>(
+      xm, wm, kindex, static_cast<bf16*>(out), M, K, N, max_live);
+  return (int)cudaGetLastError();
+}
+
+long long smem_bytes_tc(int bm) {
+  switch (tc_tile(bm)) {
+    case 64:
+      return BsmmGemm<64>::kSmem;
+    case 128:
+      return BsmmGemm<128>::kSmem;
+    default:
+      return BsmmGemm<256>::kSmem;
+  }
 }
 
 }  // namespace
 
-// Dynamic shared memory of one CTA for an M tile of block_m rows: the
-// wrapper's smem_bytes mirrors it and the autotuner filters on it.
+// Dynamic shared memory of one CTA for an M tile of block_m rows (bf16:
+// the tc tile block_m maps to): the wrapper's smem_bytes mirrors it and
+// the autotuner filters on it.
 extern "C" long long block_sparse_matmul_smem_bytes(int block_m, int dtype) {
-  return smem_bytes(block_m, dtype);
+  return dtype == kBFloat16 ? smem_bytes_tc(block_m) : smem_bytes_f32(block_m);
 }
 
+// fp32 x and w; M a multiple of block_m <= 256.
 extern "C" int block_sparse_matmul_launch(const void* x, const void* w,
                                           const int* kindex, void* out,
                                           int M, int K, int N, int block_m,
-                                          int max_live, int dtype,
-                                          void* stream) {
+                                          int max_live, void* stream) {
   if (M < 1 || block_m < 1 || block_m > 256 || M % block_m != 0 ||
       K < kBlock || K % kBlock != 0 || N < kBlock || N % kBlock != 0 ||
-      max_live < 1 || (dtype != kFloat32 && dtype != kBFloat16))
+      max_live < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (tile_rows(block_m)) {
     case 32:
-      return launch<32>(x, w, kindex, out, M, K, N, block_m, max_live, dtype,
-                        s);
+      return launch_f32<32>(x, w, kindex, out, M, K, N, block_m, max_live,
+                            s);
     case 64:
-      return launch<64>(x, w, kindex, out, M, K, N, block_m, max_live, dtype,
-                        s);
+      return launch_f32<64>(x, w, kindex, out, M, K, N, block_m, max_live,
+                            s);
     case 128:
-      return launch<128>(x, w, kindex, out, M, K, N, block_m, max_live,
-                         dtype, s);
+      return launch_f32<128>(x, w, kindex, out, M, K, N, block_m, max_live,
+                             s);
     default:
-      return launch<256>(x, w, kindex, out, M, K, N, block_m, max_live,
-                         dtype, s);
+      return launch_f32<256>(x, w, kindex, out, M, K, N, block_m, max_live,
+                             s);
+  }
+}
+
+// bf16 x and w, every base 16-byte aligned (TMA); the tile is the tc tile
+// of block_m (64, 128 or 256 rows; any M).
+extern "C" int block_sparse_matmul_tc_launch(const void* x, const void* w,
+                                             const int* kindex, void* out,
+                                             int M, int K, int N,
+                                             int block_m, int max_live,
+                                             void* stream) {
+  if (M < 1 || block_m < 1 || K < kBlock || K % kBlock != 0 ||
+      N < kBlock || N % kBlock != 0 || max_live < 1 ||
+      ((uintptr_t)x | (uintptr_t)w | (uintptr_t)out) % 16)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (tc_tile(block_m)) {
+    case 64:
+      return launch_tc<64>(x, w, kindex, out, M, K, N, max_live, s);
+    case 128:
+      return launch_tc<128>(x, w, kindex, out, M, K, N, max_live, s);
+    default:
+      return launch_tc<256>(x, w, kindex, out, M, K, N, max_live, s);
   }
 }

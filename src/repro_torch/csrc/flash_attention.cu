@@ -51,10 +51,9 @@
 // short.  At (1, 4096, 28 / 4, 128) causal the products are 120 GFLOP,
 // so operations bound it.
 
-#include <cuda.h>
-
 #include "attention_tc.cuh"
 #include "common.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -412,61 +411,17 @@ __global__ void __launch_bounds__(Tile<BQ, BKV, D>::kThreads, 1)
   }
 }
 
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime (no
-// link against libcuda)
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A tensor map over a row-major (rows, cols) bf16 matrix: boxes of 64
-// columns (128 bytes) by box_rows rows, 128-byte swizzle, zeros past the
-// edges.
-int encode(CUtensorMap* map, const void* ptr, long long rows,
-           long long cols, int box_rows) {
-  const EncodeTiled fn = encode_fn();
-  if (fn == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                        const_cast<void*>(ptr), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
 template <int BQ, int BKV, int D>
 int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
               int Sq, int Skv, int H, int KV, int causal, int window,
               float scale, cudaStream_t stream) {
+  using repro::tma::encode_bf16;
   CUtensorMap qm, km, vm;
-  int e = encode(&qm, q, (long long)B * Sq, (long long)H * D, BQ);
-  if (e == 0) e = encode(&km, k, (long long)B * Skv, (long long)KV * D, BKV);
-  if (e == 0) e = encode(&vm, v, (long long)B * Skv, (long long)KV * D, BKV);
+  int e = encode_bf16(&qm, q, (long long)B * Sq, (long long)H * D, BQ);
+  if (e == 0)
+    e = encode_bf16(&km, k, (long long)B * Skv, (long long)KV * D, BKV);
+  if (e == 0)
+    e = encode_bf16(&vm, v, (long long)B * Skv, (long long)KV * D, BKV);
   if (e != 0) return e;
   const size_t smem = (size_t)repro::tc::smem_bytes(BQ, BKV, D);
   auto kernel = flash_attention_tc_kernel<BQ, BKV, D>;

@@ -65,6 +65,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import flash_decode_paged as fdp
 from repro_torch.kernels import flash_prefill_ragged as fpr
+from repro_torch.kernels import gemm_tc
 from repro_torch.kernels import quant_matmul as qmm
 from repro_torch.models.common import resolve_device
 
@@ -443,8 +444,10 @@ def flash_prefill_ragged_problem(slots: int, s: int, h: int, kv_heads: int,
 # quant matmul ---------------------------------------------------------------
 def _qmm_candidates(problem: dict[str, Any]
                     ) -> list[tuple[dict[str, int], int]]:
-    # fixed 64 x 64 tiles: one launch to time
-    return [({}, qmm.SMEM_BYTES)]
+    # the launch takes no tile config (the tc plan is a function of the
+    # shape): one launch to time, at the shared memory of the variant the
+    # problem takes
+    return [({}, qmm.smem_bytes(problem["m"], problem["n"], problem["k"]))]
 
 
 def _qmm_runner(problem: dict[str, Any], cfg: dict[str, int],
@@ -465,15 +468,23 @@ def quant_matmul_problem(x_shape, w_shape, dtype, *,
 def _bsmm_candidates(problem: dict[str, Any]
                      ) -> list[tuple[dict[str, int], int]]:
     m = problem["m"]
+    on_tc = gemm_tc.bsmm_variant(problem["dtype"]) == "tc"
+    # the tc kernel's tiles (a request maps to the nearest), or the fp32
+    # kernel's axis; default first either way
+    axis = (128,) + tuple(t for t in gemm_tc.BSMM_TILES if t != 128) \
+        if on_tc else _axis(128)
     out, seen = [], set()
-    for bm in _axis(128):
+    for bm in axis:
         if not _divides(bm, m):
             continue
         eff = min(bm, m)
+        if on_tc:
+            eff = gemm_tc.bsmm_tile(eff)
         if eff in seen:
             continue
         seen.add(eff)
-        out.append(({"block_m": bm}, bsmm.smem_bytes(eff, problem["dtype"])))
+        out.append(({"block_m": bm}, bsmm.smem_bytes(min(bm, m),
+                                                     problem["dtype"])))
     return out
 
 

@@ -9,6 +9,14 @@ count is ``max_live``, the densest column), and compute drops with block
 sparsity.  The kernel (``csrc/block_sparse_matmul.cu``) replaces the Pallas
 TPU kernel of the JAX package's ``kernels/block_sparse_matmul.py``.
 
+Two variants, picked by ``gemm_tc.bsmm_variant`` from the dtype: bf16
+takes the tensor-core kernel (``"tc"``: TMA and wgmma on the shared main
+loop of ``csrc/gemm_tc.cuh``, tiles of 64, 128 or 256 rows, a
+``block_m`` request mapped to the nearest); fp32 takes the CUDA-core FFMA
+kernel (``"ffma"``).  ``launches`` counts every launch, ``launches_tc``
+those of the tensor-core variant, and ``last_launch`` holds the variant
+and the M tile of the last one.
+
 A CPU tensor goes to :func:`block_sparse_matmul_plain`; a CUDA tensor goes
 to the kernel or raises.
 """
@@ -21,14 +29,18 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import gemm_tc
 
 BLOCK = 128
 SMEM_LIMIT = 232_448         # dynamic shared memory a CTA may use (H100)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ROW_F32, _ROW_BF16 = BLOCK + 4, BLOCK + 8   # padded tile rows, as the .cu
+_ROW_F32 = BLOCK + 4         # padded fp32 x-tile rows, as the .cu
 
-# kernel launches since the count was last set to 0
+# kernel launches since the counts were last set to 0: all, and those of
+# the tensor-core variant
 launches = 0
+launches_tc = 0
+last_launch: dict = {}
 
 
 def compact_block_index(block_map: np.ndarray) -> np.ndarray:
@@ -44,7 +56,8 @@ def compact_block_index(block_map: np.ndarray) -> np.ndarray:
 
 
 def tile_rows(block_m: int) -> int:
-    """Rows of one CTA's tile: block_m padded to 32, 64, 128 or 256."""
+    """Rows of one CTA's tile in the fp32 kernel: block_m padded to 32,
+    64, 128 or 256."""
     for rows in (32, 64, 128):
         if block_m <= rows:
             return rows
@@ -54,15 +67,11 @@ def tile_rows(block_m: int) -> int:
 def smem_bytes(block_m: int, dtype) -> int:
     """Dynamic shared memory the kernel's launch requests for an M tile
     of ``block_m`` rows (``block_sparse_matmul_smem_bytes`` in the .cu):
-    the x tile and one w block, rows padded."""
-    rows = tile_rows(block_m)
-    if _dtype(dtype) == torch.bfloat16:
-        return 2 * (rows + BLOCK) * _ROW_BF16
-    return 4 * (rows * _ROW_F32 + BLOCK * BLOCK)
-
-
-def _dtype(dtype) -> torch.dtype:
-    return dtype if isinstance(dtype, torch.dtype) else getattr(torch, dtype)
+    bf16, the tc kernel's ring (``gemm_tc.bsmm_smem_bytes``); fp32, the x
+    tile (rows padded) and one w block."""
+    if gemm_tc.bsmm_variant(dtype) == "tc":
+        return gemm_tc.bsmm_smem_bytes(block_m)
+    return 4 * (tile_rows(block_m) * _ROW_F32 + BLOCK * BLOCK)
 
 
 def block_sparse_matmul_plain(x: torch.Tensor, w: torch.Tensor,
@@ -91,11 +100,12 @@ def block_sparse_matmul_plain(x: torch.Tensor, w: torch.Tensor,
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("block_sparse_matmul")
-    fn = lib.block_sparse_matmul_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    if lib.block_sparse_matmul_launch.argtypes is None:
+        for fn in (lib.block_sparse_matmul_launch,
+                   lib.block_sparse_matmul_tc_launch):
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+                + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         sm = lib.block_sparse_matmul_smem_bytes
         sm.argtypes = [ctypes.c_int] * 2
         sm.restype = ctypes.c_longlong
@@ -141,7 +151,7 @@ def block_sparse_matmul(x: torch.Tensor, w: torch.Tensor,
     ``block`` is the mask granularity (fixed by the kindex layout; the
     kernel takes 128); ``block_m`` is the free M-tile dimension (autotuned
     through kernels/autotune.py), clamped to M as in the JAX package."""
-    global launches
+    global launches, launches_tc, last_launch
     if x.device.type == "cpu":
         return block_sparse_matmul_plain(x, w, kindex, block=block)
     bm = min(block_m or block, x.shape[0])
@@ -152,12 +162,17 @@ def block_sparse_matmul(x: torch.Tensor, w: torch.Tensor,
     m, k = x.shape
     n = w.shape[1]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    err = _lib().block_sparse_matmul_launch(
-        _build.ptr(x), _build.ptr(w), _build.ptr(kindex), _build.ptr(out),
-        m, k, n, bm, kindex.shape[1], _DTYPES[x.dtype],
-        _build.current_stream(x.device))
+    var = gemm_tc.bsmm_variant(x.dtype)
+    launch = _lib().block_sparse_matmul_tc_launch if var == "tc" \
+        else _lib().block_sparse_matmul_launch
+    err = launch(_build.ptr(x), _build.ptr(w), _build.ptr(kindex),
+                 _build.ptr(out), m, k, n, bm, kindex.shape[1],
+                 _build.current_stream(x.device))
     if err != 0:
-        raise RuntimeError(f"block_sparse_matmul launch failed: "
+        raise RuntimeError(f"block_sparse_matmul ({var}) launch failed: "
                            f"cudaError {err}")
     launches += 1
+    launches_tc += var == "tc"
+    last_launch = {"variant": var, "block_m": gemm_tc.bsmm_tile(bm)
+                   if var == "tc" else bm}
     return out

@@ -15,6 +15,16 @@ Any K: the int32 sum wraps modulo 2**32 as the JAX package's int32
 127 * 127 * K`` can pass 2**31 only for K >= 133,143 (the TUNE problem
 of Qwen2-7B's embedding has K = 152,064).
 
+Two variants, picked by ``gemm_tc.qmm_variant`` from K alone: K % 16 == 0
+(every Qwen2-7B shape) takes the tensor-core kernel (``"tc"``: TMA and
+wgmma s8 on the shared main loop of ``csrc/gemm_tc.cuh``, the operands
+swapped at M <= 64, split K by ``gemm_tc.qmm_plan`` where the tiles alone
+leave the card short of two waves, the int32 partials combined in split
+order); any other K takes the mma.sync kernel (``"mma"``).  Both are bit
+for bit :func:`int8_matmul_plain`.  ``launches`` counts every launch,
+``launches_tc`` those of the tensor-core variant, and ``last_launch``
+holds the variant, tiles and splits of the last one.
+
 A CPU tensor goes to :func:`quant_matmul_plain`; a CUDA tensor goes to
 the kernel or raises.
 """
@@ -26,14 +36,27 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import gemm_tc
 from repro_torch.quant.policy import quantize_int8
 
-# shared memory of one CTA: two 64 x 64 int8 slabs, rows padded to 80
-# bytes (static in csrc/quant_matmul.cu; the launch takes no tile config)
-SMEM_BYTES = 2 * 64 * 80
+# shared memory of one CTA of the mma.sync kernel: two 64 x 64 int8 slabs,
+# rows padded to 80 bytes (static in csrc/quant_matmul.cu)
+MMA_SMEM_BYTES = 2 * 64 * 80
+MMA_TILES = (64, 64)
 
-# kernel launches since the count was last set to 0
+# kernel launches since the counts were last set to 0: all, and those of
+# the tensor-core variant
 launches = 0
+launches_tc = 0
+last_launch: dict = {}
+
+
+def smem_bytes(m: int, n: int, k: int) -> int:
+    """Dynamic shared memory of one CTA of the variant an (M, K) x (K, N)
+    product takes (the launch takes no tile config)."""
+    if gemm_tc.qmm_variant(k) == "tc":
+        return gemm_tc.qmm_plan(m, n, k)["smem_bytes"]
+    return MMA_SMEM_BYTES
 
 
 def quantize_operands(x: torch.Tensor, w: torch.Tensor):
@@ -72,6 +95,14 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        tc = lib.quant_matmul_tc_launch
+        tc.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 \
+            + [ctypes.c_void_p]
+        tc.restype = ctypes.c_int
+        plan = lib.quant_matmul_tc_plan
+        plan.argtypes = [ctypes.c_int] * 3 \
+            + [ctypes.POINTER(ctypes.c_longlong)]
+        plan.restype = None
     return lib
 
 
@@ -93,7 +124,14 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
 def int8_matmul(xq, xs, wq, ws) -> torch.Tensor:
     """Launch the kernel on quantized CUDA operands (the layout of
     :func:`quantize_operands`); (M, N) fp32."""
-    global launches
+    return _launch(xq, xs, wq, ws)
+
+
+def _launch(xq, xs, wq, ws, splits: int | None = None) -> torch.Tensor:
+    """The launch behind :func:`int8_matmul`.  ``splits`` (tc only) forces
+    a split count other than the plan's: the bits must not change, and a
+    check may show it; the wrapper never passes one."""
+    global launches, launches_tc, last_launch
     m, k = xq.shape
     n = wq.shape[0]
     for name, t, dt, shape in (("xq", xq, torch.int8, (m, k)),
@@ -108,13 +146,35 @@ def int8_matmul(xq, xs, wq, ws) -> torch.Tensor:
                              f"{t.dtype} {tuple(t.shape)}")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+    var = gemm_tc.qmm_variant(k)
     out = torch.empty((m, n), dtype=torch.float32, device=xq.device)
-    err = _lib().quant_matmul_launch(
-        _build.ptr(xq), _build.ptr(xs), _build.ptr(wq), _build.ptr(ws),
-        _build.ptr(out), m, n, k, _build.current_stream(xq.device))
+    ptrs = (_build.ptr(xq), _build.ptr(xs), _build.ptr(wq), _build.ptr(ws),
+            _build.ptr(out))
+    stream = _build.current_stream(xq.device)
+    if var == "tc":
+        plan = gemm_tc.qmm_plan(m, n, k)
+        s = plan["splits"] if splits is None else splits
+        shape = gemm_tc.qmm_workspace_shape(m, n, s)
+        part = None if shape is None else torch.empty(
+            shape, dtype=torch.int32, device=xq.device)
+        err = _lib().quant_matmul_tc_launch(
+            *ptrs, None if part is None else _build.ptr(part), m, n, k, s,
+            stream)
+        launch = {"variant": "tc", "tiles": (plan["block_a"],
+                                             plan["block_b"]),
+                  "swap": plan["swap"], "splits": s}
+    else:
+        if splits is not None:
+            raise ValueError("quant_matmul: only the tc variant splits K")
+        err = _lib().quant_matmul_launch(*ptrs, m, n, k, stream)
+        launch = {"variant": "mma", "tiles": MMA_TILES, "swap": False,
+                  "splits": 1}
     if err != 0:
-        raise RuntimeError(f"quant_matmul launch failed: cudaError {err}")
+        raise RuntimeError(f"quant_matmul ({var}) launch failed: "
+                           f"cudaError {err}")
     launches += 1
+    launches_tc += var == "tc"
+    last_launch = launch
     return out
 
 
