@@ -65,7 +65,31 @@ Phases, each printing one JSON line or more:
                to the trials' (warmup + iters), every GEMM launch on its
                tensor-core variant, a second execution all cache hits,
                and the tuned dispatchers against their plain versions.
-               Runs before phase 6, whose rows report its launch counts.
+               Runs before phase 6, whose rows report its launch counts;
+9. serveflow — the SERVE O-task's flow at full width: ``serve_strategy``
+               (MODEL-GEN: Qwen2-7B, 28 layers, bf16, seed 0 → TUNE over
+               the flash_decode_paged, flash_prefill_ragged and
+               paged_segment problems → SERVE on an 8-request profile of
+               256-token prompts, 4 slots), after TUNE has settled the
+               page size those problems are keyed against.  TUNE's
+               launches equal trials × (warmup + iters) (× SEGMENT_TOKENS
+               for paged_segment), the default plan's page size and
+               cadence read back ``tuned`` or ``relaxed``, stage 2 runs at
+               most half the grid, the winner scores at least the
+               default, the plan artifact round-trips and deploys (also in
+               a fresh process), and every replay launch is on the
+               tensor-core variants;
+10. durable  — on the same model: a journaled 8-request burst (256-token
+               prompts, 32 new tokens, 4 slots, a pool that preempts so
+               swap images spill) in turns with the same burst
+               unjournaled (the journal's overhead), crashed at a
+               mid-burst boundary and finished by ``RestartRecovery``;
+               a 2-replica ``ServingCluster`` losing a replica; the same
+               cluster journaled, crashed and resumed.  Every request's
+               tokens equal the unjournaled engine's, no swap image of the
+               single engine outlives it, the surviving pools drain.
+               Phases 9 and 10 run before phase 6, whose rows report
+               their launch counts.
 
 Then one ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line, and the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises and
@@ -79,7 +103,9 @@ busy share, the admission dispatches' share of device time, the top
 kernels and host ops — and over 16 contiguous decode steps under each
 policy) runs only when asked.
 
-Usage: ``python3 chip_smoke.py [--phases 1,2,3,4,5,6,8[,7]] [--src DIR]``.
+Usage: ``python3 chip_smoke.py [--phases 1,2,3,4,5,6,8,9,10[,7]]
+[--src DIR]``; ``--phases 1,2,9,10`` builds the kernels and drives the
+SERVE and durability paths alone.
 ``--src`` drives the ``repro_torch`` under another tree (e.g. the parent
 commit unpacked beside this one) with this script's phases; with
 ``--phases 1,6`` that times both commits' kernels with the same rows in one
@@ -1440,6 +1466,492 @@ def _tuned_dispatch(handle, tuned, cache_path) -> dict:
     return out
 
 
+# ------------------------------------------------------- phases 9 and 10
+# The SERVE O-task's flow (phase 9) and the durability paths (phase 10),
+# Qwen2-7B at full width and depth in bf16 with seed-0 weights.
+SERVEFLOW = dict(name="qwen2-7b-serveflow", n_requests=8, prompt_len=256,
+                 max_new_tokens=16, prefix_share=0.25, seed=11)
+SERVEFLOW_SLOTS = 4
+PAGED = ("flash_decode_paged", "flash_prefill_ragged", "paged_segment")
+TUNE_PER_TRIAL = 1 + 3                  # Tune's default warmup + iters
+# 8 requests of 256 + 32 tokens over 4 slots.  A request is admitted with
+# 17 pages (its prompt and one segment) and grows to 19; a pool of whole
+# lifetimes never preempts (3 lifetimes admit 3 requests, which then grow
+# within it), so the pool holds the 4 admissions and DURABLE_SPARE pages:
+# growth preempts, and the victims' swap images spill beside the journal
+DURABLE = dict(name="qwen2-7b-durable", n_requests=8, prompt_len=256,
+               max_new_tokens=32, seed=12)
+DURABLE_PLAN = dict(slots=4, page_size=16, segment_len=8)
+DURABLE_SPARE = 2
+
+FRESH_PROCESS = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from repro_torch.configs.registry import get_config
+from repro_torch.models.api import build_model
+from repro_torch.serving import PagedServingEngine, ServingPlan
+with open(sys.argv[2]) as f:
+    plan = ServingPlan.from_dict(json.load(f))
+cfg = get_config(sys.argv[4], smoke=sys.argv[5] == "1")
+eng = PagedServingEngine.from_plan(build_model(cfg, device=sys.argv[3]),
+                                   plan)
+print(json.dumps({"cache": eng.pcfg.to_dict(), "plan": eng.plan.to_dict(),
+                  "prefill_mode": eng.prefill_mode,
+                  "cache_dtype": str(eng.cache_dtype)}))
+"""
+
+
+def _sync(device) -> None:
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _paged_problems(cfg, device) -> list:
+    """The flash_decode_paged, flash_prefill_ragged and paged_segment
+    problems of ``derive_problems`` over all its problems (at full width
+    the matrix products rank first among the four largest).  An LM's
+    stacked weights derive no problem, so a handle on the config alone
+    gives the list the flow's MODEL-GEN artifact would."""
+    import types
+    from repro_torch.tasks.handle import DNNHandle
+    from repro_torch.tasks.tune import derive_problems
+    handle = DNNHandle(kind="lm", name=cfg.name, params={},
+                       model=types.SimpleNamespace(cfg=cfg))
+    return [p for p in derive_problems(handle, max_problems=64,
+                                       device=device)
+            if p["kernel"] in PAGED]
+
+
+def _tune_launches(probes) -> dict:
+    """What Tune launches for its probes: (warmup + iters) a measured
+    candidate, SEGMENT_TOKENS decode launches a paged_segment call, none
+    for a cache hit."""
+    from repro_torch.kernels import autotune
+    want = {name: 0 for name in KERNELS}
+    for p in probes:
+        if p.get("cached"):
+            continue
+        if p["kernel"] == "paged_segment":
+            want["flash_decode_paged"] += TUNE_PER_TRIAL \
+                * autotune.SEGMENT_TOKENS
+        else:
+            want[p["kernel"]] += TUNE_PER_TRIAL
+    return want
+
+
+def phase_serveflow(device="cuda", smoke=False):
+    """MODEL-GEN → TUNE → SERVE (``serve_strategy``) at full width, with
+    the autotune cache a fresh file that TUNE, the plan readbacks and the
+    engine's prefill readback share.  TUNE first settles the page size
+    (``flash_decode_paged``), so that the flow's TUNE stage tunes the
+    prefill tile and the segment cadence against the page size the pool
+    will use; then the flow.  Checks: TUNE's launches, the readbacks'
+    provenance, the staged search's pruning and gate, the artifact's
+    round trip (also in a fresh process) and every replay launch on the
+    tensor-core variants.  Returns (launches of the flow, model, params)."""
+    import os
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.strategies import run, serve_strategy
+    from repro_torch.kernels import autotune
+    from repro_torch.serving import (PagedServingEngine, ServingPlan,
+                                     TrafficProfile)
+    cfg = get_config("qwen2_7b", smoke=smoke)
+    OUT.mkdir(exist_ok=True)
+    cache = OUT / "serveflow_autotune.json"
+    artifact = OUT / "serveflow_plan.json"
+    cache.unlink(missing_ok=True)
+    artifact.unlink(missing_ok=True)
+    old_env = os.environ.get(autotune.CACHE_ENV)
+    os.environ[autotune.CACHE_ENV] = str(cache)
+    autotune.clear_memory_cache()
+    try:
+        fpd = next(p for p in _paged_problems(cfg, device)
+                   if p["kernel"] == "flash_decode_paged")
+        _zero_counts()
+        t0 = time.perf_counter()
+        pre = autotune.tune("flash_decode_paged",
+                            {k: v for k, v in fpd.items() if k != "kernel"},
+                            device=device)
+        _sync(device)
+        pre_s = time.perf_counter() - t0
+        n_pre = _read_counts()["flash_decode_paged"]
+        if n_pre != TUNE_PER_TRIAL * len(pre.trials) or pre.cached:
+            raise AssertionError(f"phase 9 page-size tune: {n_pre} "
+                                 f"launches for {len(pre.trials)} trials")
+        problems = _paged_problems(cfg, device)
+        ps = pre.config["page_size"]
+        if sorted(p["kernel"] for p in problems) != sorted(PAGED) or any(
+                p.get("page_size", ps) != ps for p in problems):
+            raise AssertionError(f"phase 9 problems {problems}, page {ps}")
+        prof = TrafficProfile(**SERVEFLOW)
+        flow = serve_strategy(
+            "qwen2-7b", model_params={"train_en": False, "smoke": smoke},
+            tune_params={"problems": problems},
+            serve_params={"profile": prof.to_dict(),
+                          "slots": SERVEFLOW_SLOTS,
+                          "artifact_path": str(artifact)},
+            device=device)
+        serve_task = flow.tasks[2]
+        at_serve = {}
+        serve_execute = serve_task.execute
+
+        def execute(meta, inputs):     # the TUNE / SERVE boundary
+            _sync(device)
+            at_serve.update(launches=_read_counts(), tc=_read_tc_counts(),
+                            t=time.perf_counter())
+            return serve_execute(meta, inputs)
+
+        serve_task.execute = execute
+        _zero_counts()
+        t0 = time.perf_counter()
+        meta = run(flow)
+        _sync(device)
+        t_end = time.perf_counter()
+        wall = t_end - t0
+        counts, tc_counts = _read_counts(), _read_tc_counts()
+        tune_counts = at_serve["launches"]
+        want = _tune_launches(meta.trace("tune.probe"))
+        if tune_counts != want:
+            raise AssertionError(f"phase 9 TUNE launches {tune_counts} != "
+                                 f"{want}")
+        serve_counts = {k: counts[k] - tune_counts[k] for k in counts}
+        serve_tc = {k: tc_counts[k] - at_serve["tc"][k] for k in tc_counts}
+        paged = ("flash_decode_paged", "flash_prefill_ragged")
+        if any(serve_counts[k] < 1 or serve_tc[k] != serve_counts[k]
+               for k in paged) or any(serve_counts[k] for k in KERNELS
+                                      if k not in paged):
+            raise AssertionError(f"phase 9 replay launches {serve_counts}, "
+                                 f"tensor-core {serve_tc}")
+        if any(tc_counts[k] != counts[k] for k in paged):
+            raise AssertionError(f"phase 9 tensor-core launches "
+                                 f"{tc_counts} of {counts}")
+        res = meta.get("serve.result")
+        default = ServingPlan.resolve(
+            cfg, slots=SERVEFLOW_SLOTS, max_prompt_len=prof.prompt_len,
+            max_new_tokens=prof.max_new_tokens, device=device)
+        prov = {k: default.provenance[k] for k in ("page_size",
+                                                   "segment_len")}
+        if any(v not in ("tuned", "relaxed") for v in prov.values()):
+            raise AssertionError(f"phase 9 default plan provenance {prov}")
+        if res["n_stage2"] * 2 > res["n_candidates"]:
+            raise AssertionError(f"phase 9: stage 2 ran {res['n_stage2']} "
+                                 f"of {res['n_candidates']}")
+        if not res["objective"] >= res["default_objective"]:
+            raise AssertionError(f"phase 9: winner {res['objective']} < "
+                                 f"default {res['default_objective']}")
+        with open(artifact) as f:
+            plan = ServingPlan.from_dict(json.load(f))
+        if plan != ServingPlan.from_dict(res["plan"]) or plan != \
+                ServingPlan.from_dict(json.loads(json.dumps(plan.to_dict()))):
+            raise AssertionError("phase 9: the artifact does not round-trip")
+        served = meta.latest("dnn", lambda a: "+V" in a.name).payload
+        eng = PagedServingEngine.from_plan(served.model, plan)
+        if eng.pcfg != plan.cache or eng.plan != plan \
+                or eng.prefill_mode != plan.prefill_mode:
+            raise AssertionError("phase 9: from_plan is not the plan")
+        src = str(Path(sys.modules["repro_torch"].__file__).parents[1])
+        child = subprocess.run(
+            [sys.executable, "-c", FRESH_PROCESS, src, str(artifact),
+             str(device), "qwen2_7b", "1" if smoke else "0"],
+            capture_output=True, text=True, timeout=300)
+        if child.returncode != 0:
+            raise AssertionError(f"phase 9 fresh process: {child.stderr}")
+        fresh = json.loads(child.stdout.strip().splitlines()[-1])
+        if fresh != {"cache": eng.pcfg.to_dict(), "plan": eng.plan.to_dict(),
+                     "prefill_mode": eng.prefill_mode,
+                     "cache_dtype": str(eng.cache_dtype)}:
+            raise AssertionError(f"phase 9 fresh process built {fresh}")
+        probes = meta.trace("serve.probe")
+        for p in probes:
+            emit({"phase": "serveflow_candidate",
+                  **{k: p.get(k) for k in (
+                      "step", "stage", "candidate", "page_size",
+                      "segment_len",
+                      "n_pages", "objective", "feasible", "tokens",
+                      "wall_s", "decode_s", "preemptions", "n_segments",
+                      "admission_p50_s")}})
+        tune_done = meta.trace("tune.done")
+        emit({"phase": "serveflow", "arch": cfg.name,
+              "layers": cfg.n_layers, "d_model": cfg.d_model,
+              "dtype": cfg.act_dtype, "profile": prof.to_dict(),
+              "slots": SERVEFLOW_SLOTS, "wall_s": wall,
+              "tune_s": at_serve["t"] - t0,
+              "serve_s": t_end - at_serve["t"],
+              "page_size_pretune": {"config": pre.config, "us": pre.us,
+                                    "trials": len(pre.trials),
+                                    "wall_s": pre_s,
+                                    "trial_us": [[t.config, t.us]
+                                                 for t in pre.trials]},
+              "tune": [{k: d[k] for k in ("kernel", "config", "us",
+                                          "cached")} for d in tune_done],
+              "tune_launches": tune_counts,
+              "serve_launches": serve_counts,
+              "launches": counts, "launches_tc": tc_counts,
+              "default_provenance": prov,
+              "default_cache": default.cache.to_dict(),
+              "objective": res["objective"],
+              "default_objective": res["default_objective"],
+              "n_candidates": res["n_candidates"],
+              "n_stage2": res["n_stage2"], "plan": res["plan"],
+              "fresh_process_equal": True})
+    finally:
+        if old_env is None:
+            os.environ.pop(autotune.CACHE_ENV, None)
+        else:
+            os.environ[autotune.CACHE_ENV] = old_env
+        autotune.clear_memory_cache()
+    return counts, served.model, served.params
+
+
+def _durable_model():
+    """Phase 10's model when phase 9 did not build one: Qwen2-7B at full
+    width and depth, bf16, seed-0 weights (MODEL-GEN's)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.api import build_model
+    model = build_model(get_config("qwen2_7b"))
+    return model, model.init(seed=0)
+
+
+def _check_row_invariance(model, params, device) -> dict:
+    """The products of an admission prefill give a row the same bits
+    beside 8 rows or 1,024 (``models/common.py::row_invariant_matmul``):
+    layer 0's projections and lm_head through ``linear``, bf16.  Beside
+    each, whether one plain ``torch.matmul`` call does too (reported, not
+    required: cuBLAS picks its algorithm by the row count)."""
+    import torch
+    from repro_torch.models.common import linear
+    ctx = model.ctx(decode=True)
+    blk = params.blocks[0]
+    gen = torch.Generator(device=device).manual_seed(7)
+    out = {}
+    for name, w in (("attn/wq", blk.attn.wq), ("attn/wk", blk.attn.wk),
+                    ("mlp/w_up", blk.mlp.w_up), ("mlp/w_down", blk.mlp.w_down),
+                    ("lm_head", params.lm_head)):
+        x = torch.randn((1024, w.shape[0]), generator=gen,
+                        device=device).to(model.cfg.adt)
+        full = linear(ctx, name, x.view(4, 256, -1), w).reshape(1024, -1)
+        wx = w.to(x.dtype)
+        plain = torch.matmul(x, wx)
+        plain_equal = {}
+        for rows in (8, 264):
+            part = linear(ctx, name, x[:rows].view(1, rows, -1), w)[0]
+            if not torch.equal(part, full[:rows]):
+                raise AssertionError(f"{name}: rows 0..{rows} change bits "
+                                     f"beside 1,024 rows")
+            plain_equal[rows] = bool(torch.equal(torch.matmul(x[:rows], wx),
+                                                 plain[:rows]))
+        out[name] = {"shape": list(w.shape),
+                     "plain_matmul_rows_equal": plain_equal}
+    return out
+
+
+def _pools_drained(cluster) -> bool:
+    for rep in cluster.replicas:
+        if rep.fenced:
+            continue
+        s = rep.run.sched.rm.stats()
+        if s["free_pages"] + s["pinned_pages"] \
+                != rep.run.pcfg.allocatable_pages \
+                or s["held_pages"] != s["pinned_pages"]:
+            return False
+    return True
+
+
+def phase_durable(model, params, device="cuda") -> dict:
+    """The durability paths at full width on one card: (a) a journaled
+    burst, fault-free (in turns with the same burst unjournaled, for the
+    journal's overhead), then crashed at a mid-burst boundary
+    (``process_crash``) and finished by ``RestartRecovery`` from the
+    plan JSON and the journal; (b) a 2-replica ``ServingCluster`` losing
+    a replica (``replica_crash``); (c) that cluster journaled, crashed and
+    resumed.  Every request's tokens must equal the unjournaled engine's,
+    no swap image may outlive the run, and the surviving pools must be
+    drained.  Returns the phase's launch counts."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.serving import (DurabilityPolicy, FaultPlan,
+                                     PagedServingEngine, ProcessCrashed,
+                                     RestartRecovery, ServingCluster,
+                                     ServingPlan, TrafficProfile,
+                                     replay_journal)
+    from repro_torch.serving.cluster import DEAD
+    cfg = model.cfg
+    prof = TrafficProfile(**DURABLE)
+    plan = ServingPlan.resolve(cfg, max_prompt_len=prof.prompt_len,
+                               max_new_tokens=prof.max_new_tokens,
+                               device=device, **DURABLE_PLAN)
+    pc = plan.cache
+    admit = pc.pages_for(pc.admission_tokens(prof.prompt_len,
+                                             prof.max_new_tokens))
+    plan = dataclasses.replace(plan, cache=dataclasses.replace(
+        pc, n_pages=pc.max_slots * admit + DURABLE_SPARE + 1))
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_journal_"))
+
+    def durable(name, n_replicas=1):
+        d = root / name
+        return dataclasses.replace(plan, n_replicas=n_replicas,
+                                   durability=DurabilityPolicy(
+                                       enabled=True, journal_dir=str(d))), d
+
+    def requests():
+        return prof.requests(cfg.vocab_size, page_size=plan.cache.page_size)
+
+    def tokens(reqs):
+        return {r.rid: list(r.tokens) for r in reqs if r.failure is None}
+
+    def images(d):
+        return sorted(str(p.relative_to(d)) for p in d.rglob("img-*"))
+
+    def mismatch(reqs):
+        """Per request that differs from the oracle: its tokens' length,
+        the first differing position and its failure record."""
+        out = {}
+        for r in reqs:
+            got, want = list(r.tokens), oracle.get(r.rid, [])
+            if r.failure is not None or got != want:
+                first = next((i for i, (a, b) in enumerate(zip(got, want))
+                              if a != b), min(len(got), len(want)))
+                out[str(r.rid)] = {
+                    "len": len(got), "first_diff": first,
+                    "failure": None if r.failure is None
+                    else r.failure.record()}
+        return out
+
+    eng = PagedServingEngine.from_plan(model, plan)
+    out = {"plan_cache": plan.cache.to_dict(),
+           "row_invariance": _check_row_invariance(model, params, device)}
+    try:
+        _zero_counts()
+        walls, oracle = {}, None
+        # (a) unjournaled and journaled in turns: U, J, J, U
+        for i, journaled in enumerate((False, True, True, False)):
+            e = eng
+            if journaled:
+                jplan, d = durable(f"burst{i}")
+                e = PagedServingEngine.from_plan(model, jplan)
+            reqs = requests()
+            t0 = time.perf_counter()
+            st = e.run(reqs, params)
+            _sync(device)
+            walls.setdefault("journaled" if journaled else "plain",
+                             []).append(time.perf_counter() - t0)
+            got = tokens(reqs)
+            if oracle is None:
+                oracle, base = got, st
+            if got != oracle or st["n_finished"] != prof.n_requests \
+                    or st["preemptions"] < 1:
+                raise AssertionError(f"phase 10 burst {i}: "
+                                     f"{st['n_finished']} finished, "
+                                     f"{st['preemptions']} preemptions, "
+                                     f"tokens equal {got == oracle}")
+            if journaled and (st["journal"]["n_spilled"] < 1 or images(d)):
+                raise AssertionError(f"phase 10 journal {i}: "
+                                     f"{st['journal']}, left {images(d)}")
+        if len(oracle) != prof.n_requests or any(
+                len(t) != prof.max_new_tokens for t in oracle.values()):
+            raise AssertionError("phase 10: the burst did not finish")
+        crash_at = base["n_segments"] // 2
+        jplan, d = durable("crash")
+        try:
+            PagedServingEngine.from_plan(model, jplan).run(
+                requests(), params,
+                faults=FaultPlan.at(process_crash=crash_at))
+            raise AssertionError("phase 10: process_crash did not fire")
+        except ProcessCrashed:
+            pass
+        at_crash = {str(r.rid): r.status
+                    for r in replay_journal(str(d)).requests.values()}
+        left_at_crash = images(d)
+        t0 = time.perf_counter()
+        res = RestartRecovery(str(d)).resume(model, params)
+        _sync(device)
+        resume_s = time.perf_counter() - t0
+        if tokens(res["requests"]) != oracle or images(d) \
+                or "swapped" not in at_crash.values():
+            raise AssertionError(f"phase 10 restart: differ "
+                                 f"{mismatch(res['requests'])}, "
+                                 f"images left {images(d)}, at the crash "
+                                 f"{at_crash}")
+        out["burst"] = {
+            "profile": prof.to_dict(), "plain_wall_s": walls["plain"],
+            "journaled_wall_s": walls["journaled"],
+            "journal_overhead": sum(walls["journaled"])
+            / sum(walls["plain"]) - 1.0,
+            "preemptions": base["preemptions"],
+            "n_segments": base["n_segments"], "crash_at": crash_at,
+            "status_at_crash": at_crash, "images_at_crash": left_at_crash,
+            "recovered": res["recovered"], "resume_s": resume_s,
+            "tokens_equal": True}
+        # (b) two replicas, one lost
+        reqs = requests()
+        cl = ServingCluster(eng, params, n_replicas=2,
+                            faults=FaultPlan.at(replica_crash=1))
+        t0 = time.perf_counter()
+        st = cl.run(reqs)
+        _sync(device)
+        states = [v["state"] for v in st["replicas"].values()]
+        if tokens(reqs) != oracle or st["n_dead_lettered"] \
+                or states.count(DEAD) != 1 or not _pools_drained(cl):
+            raise AssertionError(f"phase 10 cluster: {states}, dead "
+                                 f"{st['n_dead_lettered']}, differ "
+                                 f"{mismatch(reqs)}")
+        out["cluster"] = {"wall_s": time.perf_counter() - t0,
+                          "states": states, "rounds": st["rounds"],
+                          "n_migrated": st["n_migrated"],
+                          "n_restarted": st["n_restarted"],
+                          "faults": st["faults"]["fired"],
+                          "tokens_equal": True, "pools_drained": True}
+        del cl
+        # (c) the cluster journaled, crashed and resumed
+        cplan, d = durable("cluster", n_replicas=2)
+        ceng = PagedServingEngine.from_plan(model, cplan)
+        crash_c = st["rounds"] // 2
+        try:
+            ServingCluster(ceng, params, n_replicas=2,
+                           faults=FaultPlan.at(process_crash=crash_c)).run(
+                requests())
+            raise AssertionError("phase 10: cluster process_crash did not "
+                                 "fire")
+        except ProcessCrashed:
+            pass
+        at_crash = {str(r.rid): r.status
+                    for r in replay_journal(str(d)).requests.values()}
+        t0 = time.perf_counter()
+        res = RestartRecovery(str(d)).resume(model, params)
+        _sync(device)
+        if tokens(res["requests"]) != oracle:
+            raise AssertionError(f"phase 10 cluster restart: "
+                                 f"{mismatch(res['requests'])}, at the "
+                                 f"crash {at_crash}, recovered "
+                                 f"{res['recovered']}, "
+                                 f"{res['stats'].get('n_dead_lettered')} "
+                                 f"dead-lettered")
+        # a cluster's resume gives the pre-crash images to no replica's
+        # writer, so they stay on disk (as in the JAX package): reported
+        out["cluster_restart"] = {"crash_at": crash_c,
+                                  "status_at_crash": at_crash,
+                                  "recovered": res["recovered"],
+                                  "images_left": images(d),
+                                  "resume_s": time.perf_counter() - t0,
+                                  "tokens_equal": True}
+        counts, tc_counts = _read_counts(), _read_tc_counts()
+        paged = ("flash_decode_paged", "flash_prefill_ragged")
+        if any(counts[k] < 1 or tc_counts[k] != counts[k] for k in paged) \
+                or any(counts[k] for k in KERNELS if k not in paged):
+            raise AssertionError(f"phase 10 launches {counts}, tensor-core "
+                                 f"{tc_counts}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "durable", "arch": cfg.name, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "dtype": cfg.act_dtype, **out,
+          "launches": counts, "launches_tc": tc_counts})
+    return counts
+
+
 PREFILL_RANGE = "burst_prefill"
 
 
@@ -1942,7 +2454,7 @@ def _row(name, source, replaces, launches, err, tol, kernel, plain, lib,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,8",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,8,9,10",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the tree whose repro_torch to drive (default: "
@@ -1983,12 +2495,25 @@ def main(argv=None) -> int:
     if 5 in phases:
         launches = phase_serve()
     tune_launches = phase_tune() if 8 in phases else {}
+    flow_launches, durable_launches = {}, {}
+    if 9 in phases or 10 in phases:
+        model = params = None
+        if 9 in phases:
+            flow_launches, model, params = phase_serveflow()
+        if 10 in phases:
+            if model is None:
+                model, params = _durable_model()
+            durable_launches = phase_durable(model, params)
+        del model, params
+        torch.cuda.empty_cache()
     # block_sparse_matmul and flash_attention run on phase 8's path only
     for name in ("block_sparse_matmul", "flash_attention"):
         launches[name] = tune_launches.get(name, 0)
     rows = phase_timing(launches) if 6 in phases else []
     for row in rows:
         row["tune_launches"] = tune_launches.get(row["name"], 0)
+        row["serveflow_launches"] = flow_launches.get(row["name"], 0)
+        row["durable_launches"] = durable_launches.get(row["name"], 0)
     if 7 in phases:
         phase_profile()
     emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 3)})

@@ -110,6 +110,7 @@ def _store(path: str, key: str, entry: dict[str, Any]) -> None:
     # name is per-writer so two simultaneous stores cannot interleave
     # inside one file; last os.replace wins.
     _MEM.pop(path, None)
+    _TILES.clear()
     data = _load(path)
     data["entries"][key] = entry
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
@@ -124,6 +125,7 @@ def clear_memory_cache() -> None:
     inputs kept between candidates (tests; frees their device memory)."""
     _MEM.clear()
     _RESOLVED.clear()
+    _TILES.clear()
     _inputs.cache_clear()
 
 
@@ -371,9 +373,12 @@ def flash_decode_paged_problem(slots: int, h: int, kv_heads: int, d: int,
 
 # paged decode segment -------------------------------------------------------
 # Not a kernel tile but the serving engine's decode-segment cadence: the
-# JAX package times a segment of the engine per candidate.  The problem,
-# its candidates and its cache entries are kept so that derive_problems
-# and tile_readback run unchanged; its runner waits for the SERVE slice.
+# engine runs segment_len decode steps as one device loop and wakes the
+# host only at segment boundaries.  Long segments amortize the host sync
+# per token; short ones react faster.  Every candidate generates the SAME
+# token budget split into segments of its length, with one host readback
+# per segment — the engine's boundary pattern.  The engine reads the
+# winner back through serving/paged_cache.py::preferred_segment_len.
 SEGMENT_TOKENS = 32          # fixed token budget every candidate pays
 
 
@@ -386,9 +391,37 @@ def _pseg_candidates(problem: dict[str, Any]
 
 def _pseg_runner(problem: dict[str, Any], cfg: dict[str, int],
                  device: str) -> Callable[[], Any]:
-    raise NotImplementedError(
-        "paged_segment: timing a decode segment of the serving engine "
-        "comes with the SERVE O-task slice (ROADMAP Queue 1)")
+    """``SEGMENT_TOKENS // segment_len`` segments, each ``segment_len``
+    launches of flash_decode_paged with every request's mask advanced one
+    slot per step (starting half full), each segment ending in one host
+    readback of its outputs — the JAX package's jitted scan per segment
+    and ``block_until_ready``, and the engine's control pull at a
+    boundary."""
+    seg_len = min(cfg["segment_len"], SEGMENT_TOKENS)
+    reps = SEGMENT_TOKENS // seg_len
+    q, kp, vp, bt, _ = _inputs("fpd", _pj(problem), device,
+                               problem["page_size"])
+    slots, max_len = problem["slots"], problem["max_len"]
+    pos = torch.arange(bt.shape[1] * problem["page_size"],
+                       device=device)[None, :]
+    sl0 = torch.full((slots,), max(1, max_len // 2), dtype=torch.int32,
+                     device=device)
+
+    def run():
+        sl, outs = sl0, None
+        for _ in range(reps):
+            step_outs = []
+            for _ in range(seg_len):
+                mask = pos < torch.clamp(sl + 1, max=max_len)[:, None]
+                out = fdp.flash_decode_paged(q, kp, vp, bt, mask)
+                step_outs.append(out[:, 0, 0, 0])
+                sl = torch.clamp(sl + 1, max=max_len - 1)
+            # the engine pulls control state back at every boundary;
+            # this readback reproduces that sync once per segment
+            outs = torch.stack(step_outs).cpu()
+        return outs
+
+    return run
 
 
 def paged_segment_problem(slots: int, h: int, kv_heads: int, d: int,
@@ -726,6 +759,23 @@ def tile_readback(kernel: str, problem: dict[str, Any], *,
     return cached_config_info(kernel, problem, cache_path=cache_path,
                               relax=TILE_RELAX.get(kernel, ()),
                               device=device)
+
+
+_TILES: dict[tuple, tuple[dict[str, int], str]] = {}
+
+
+def memo_tile_readback(kernel: str, problem: dict[str, Any], *,
+                       device=None) -> tuple[dict[str, int], str]:
+    """:func:`tile_readback` against the default cache, read once per
+    (kernel, problem, device, cache file) in this process — for readbacks
+    inside a model's forward, which the JAX package pays once per trace.
+    Every cache store and :func:`clear_memory_cache` drop the memo."""
+    key = (kernel, tuple(sorted(problem.items())), str(device),
+           default_cache_path())
+    hit = _TILES.get(key)
+    if hit is None:
+        hit = _TILES[key] = tile_readback(kernel, problem, device=device)
+    return hit
 
 
 _RESOLVED: dict[tuple, dict[str, int]] = {}   # per-process get_config memo

@@ -92,7 +92,7 @@ def linear(ctx: Ctx, name: str, x: torch.Tensor, w: torch.Tensor,
     elif level == FP8:
         y = _bf16_matmul(x, to_fp8_e4m3fn(w).to(torch.bfloat16))
     elif level == FP32:
-        y = torch.matmul(x.float(), w.float())
+        y = row_invariant_matmul(x.float(), w.float())
     else:
         y = _bf16_matmul(x, w)
     y = y.to(out_dtype)
@@ -101,11 +101,45 @@ def linear(ctx: Ctx, name: str, x: torch.Tensor, w: torch.Tensor,
     return y
 
 
+# cuBLAS picks a product's algorithm (tiles, split K) by its row count,
+# so on the card a row's bits move with the number of rows multiplied
+# beside it (the bf16 K/V and down projections of Qwen2-7B do).  Serving
+# recovery rests on a request's greedy tokens being bit-identical
+# whatever batch its prefill ran in — a restarted or failed-over request
+# is prefilled again beside other requests — so on the card a product over
+# more than one token a row runs in blocks of ROW_BLOCK rows, the last one
+# padded: every such call has one row count.  Within a call a row's bits
+# do not depend on its position.  Decode products (one token a row) keep
+# the engine's fixed slot count and run as they are.
+ROW_BLOCK = 256
+
+
+def row_invariant_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for ``x`` (..., S, K) and ``w`` (K, N); on the card with
+    S > 1 through :func:`blocked_matmul`."""
+    if not x.is_cuda or x.dim() < 3 or x.shape[-2] == 1:
+        return torch.matmul(x, w)
+    return blocked_matmul(x, w)
+
+
+def blocked_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` as products of :data:`ROW_BLOCK` rows of the flattened
+    ``x`` each, the last block padded with zero rows."""
+    lead, k = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, k)
+    m = x2.shape[0]
+    pad = -m % ROW_BLOCK
+    if pad:
+        x2 = torch.cat([x2, x2.new_zeros((pad, k))])
+    y = torch.cat([torch.matmul(xb, w) for xb in x2.split(ROW_BLOCK)])
+    return y[:m].reshape(*lead, w.shape[-1])
+
+
 def _bf16_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.bfloat16:
-        return torch.matmul(x, w.to(torch.bfloat16))
-    return torch.matmul(x.to(torch.bfloat16).float(),
-                        w.to(torch.bfloat16).float())
+        return row_invariant_matmul(x, w.to(torch.bfloat16))
+    return row_invariant_matmul(x.to(torch.bfloat16).float(),
+                                w.to(torch.bfloat16).float())
 
 
 def _int8_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

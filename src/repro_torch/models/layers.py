@@ -374,16 +374,19 @@ def _paged_attention_prefill(cfg: ArchConfig, q, k, v, cache):
     request's own pages first — in place, as in the decode branch;
     padding and idle rows land on the scratch page 0 — and then every
     suffix query attends causally over its full logical prefix through
-    flash_prefill_ragged (its default ``block_q``).
+    flash_prefill_ragged, at the ``block_q`` TUNE left in the default
+    autotune cache for this dispatch shape (the kernel default on a miss;
+    read once per shape, :func:`autotune.memo_tile_readback`).
     """
     if cfg.sliding_window:
         raise ValueError("paged prefill supports linear caches only")
+    from repro_torch.kernels import autotune
     from repro_torch.kernels.flash_prefill_ragged import flash_prefill_ragged
     kp, vp = cache["k_pages"], cache["v_pages"]
     bt, off = cache["block_tables"], cache["seq_lens"]
     lens = cache["prefill_lens"]
-    ps = kp.shape[1]
-    r, s = q.shape[:2]
+    _, ps, kvh, hd = kp.shape
+    r, s, h, _ = q.shape
     n_slots = bt.shape[1] * ps
     pos = ragged_prefill_positions(off, s)
     valid = torch.arange(s, device=q.device)[None] < lens[:, None]
@@ -393,7 +396,12 @@ def _paged_attention_prefill(cfg: ArchConfig, q, k, v, cache):
     slot = pos_c % ps
     kp[pidx, slot] = k.to(kp.dtype)
     vp[pidx, slot] = v.to(vp.dtype)
-    return flash_prefill_ragged(q, kp, vp, bt, off, lens)
+    tile, _ = autotune.memo_tile_readback(
+        "flash_prefill_ragged",
+        autotune.flash_prefill_ragged_problem(r, s, h, kvh, hd, n_slots, ps,
+                                              q.dtype), device=q.device)
+    return flash_prefill_ragged(q, kp, vp, bt, off, lens,
+                                block_q=tile["block_q"])
 
 
 # =====================================================================

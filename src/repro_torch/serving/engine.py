@@ -25,7 +25,9 @@ the page pools in place (the JAX package jits them and donates the pools):
   is then scattered into the request's pages (``_admit_serial``).  No
   prefix sharing on this path (``ServingPlan.sharing``).
 
-The write-ahead journal (``plan.durability``) is not ported yet.
+With ``plan.durability`` on, every request's lifecycle is journaled
+inside the boundary protocol below (serving/journal.py), and a crashed
+run finishes from disk through ``RestartRecovery``.
 
 The host loop runs at segment boundaries only, in a fixed order the
 resource manager's correctness depends on:
@@ -60,7 +62,8 @@ import numpy as np
 import torch
 
 from repro_torch.serving.faults import (FaultPlan, InjectedFault,
-                                        corrupt_image, image_checksum)
+                                        ProcessCrashed, corrupt_image,
+                                        image_checksum)
 from repro_torch.serving.observe import Observability, render_summary
 from repro_torch.serving.paged_cache import (AllocatorError,
                                              PagedCacheConfig, TRASH_PAGE,
@@ -138,10 +141,6 @@ class PagedServingEngine:
         if not supports_paging(model.cfg):
             raise ValueError(f"{model.cfg.name} does not support the "
                              f"paged decode path")
-        if plan.durability.enabled:
-            raise NotImplementedError(
-                "plan.durability (the write-ahead journal) is not ported "
-                "yet: it waits for the journal/cluster/traffic slice")
         self.model = model
         self.device = model.device
         self.plan = plan
@@ -424,7 +423,7 @@ class PagedServingEngine:
     def run(self, requests: list[Request], params, *,
             faults: FaultPlan | None = None,
             recovery: RecoveryPolicy | None = None,
-            obs: Observability | None = None) -> dict:
+            journal=None, obs: Observability | None = None) -> dict:
         """Serve ``requests`` (honoring their ``arrival`` offsets) to
         completion.  Mutates each request in place (tokens, t_admitted,
         t_done, all relative to engine start) and returns run counters.
@@ -440,39 +439,62 @@ class PagedServingEngine:
         retries.  The only exception that escapes the loop is
         :class:`EngineStalledError` from the no-progress watchdog.
 
+        With ``plan.durability.enabled`` (or an explicit ``journal``
+        writer), every lifecycle transition is journaled inside the
+        boundary protocol — and the ``process_crash`` fault site arms:
+        :class:`~repro_torch.serving.faults.ProcessCrashed` escapes this
+        loop (a dead process cannot heal itself) and
+        :class:`~repro_torch.serving.journal.RestartRecovery` finishes
+        the work from disk.
+
         This is a thin wrapper over :class:`EngineRun`: feed arrivals,
-        step boundaries, sleep through idle gaps.
+        step boundaries, sleep through idle gaps.  A cluster
+        (serving/cluster.py) instead drives N EngineRuns round-robin off
+        the same engine.
         """
+        own_journal = False
+        if journal is None and self.plan.durability.enabled:
+            from repro_torch.serving.journal import JournalWriter
+            journal = JournalWriter.from_policy(
+                self.plan.durability, plan=self.plan,
+                faults=faults if faults is not None else self.faults)
+            own_journal = True
         er = EngineRun(self, params, faults=faults, recovery=recovery,
-                       obs=obs)
+                       journal=journal, obs=obs)
         queue = sorted(requests, key=lambda q: q.arrival)
         nxt_arrival = 0
-        with torch.no_grad():
-            while nxt_arrival < len(queue) or er.has_work:
-                now = er.clock()
-                while (nxt_arrival < len(queue)
-                       and queue[nxt_arrival].arrival <= now):
-                    er.submit(queue[nxt_arrival])
-                    nxt_arrival += 1
-                if er.step() == "idle":
-                    if nxt_arrival < len(queue):
-                        # the pre-sorted queue's next arrival is the only
-                        # possible event while idle: sleep the whole gap
-                        wait = queue[nxt_arrival].arrival - er.clock()
-                        if wait > 0:
-                            time.sleep(wait)
-                    elif er.has_work:
-                        # queued/preempted/quarantined requests, nothing
-                        # running, no arrivals left: only an admission (or
-                        # a backoff expiry) can make progress and this
-                        # boundary produced none — count it toward the
-                        # watchdog instead of busy-spinning
-                        er.note_stall()
-            out = er.result()
-            pol = er.obs.policy
-            if er.obs.enabled and pol is not None and pol.export_dir:
-                out["exports"] = er.obs.export(pol.export_dir)
-            return out
+        try:
+            with torch.no_grad():
+                while nxt_arrival < len(queue) or er.has_work:
+                    now = er.clock()
+                    while (nxt_arrival < len(queue)
+                           and queue[nxt_arrival].arrival <= now):
+                        er.submit(queue[nxt_arrival])
+                        nxt_arrival += 1
+                    if er.step() == "idle":
+                        if nxt_arrival < len(queue):
+                            # the pre-sorted queue's next arrival is the
+                            # only possible event while idle: sleep the
+                            # whole gap
+                            wait = queue[nxt_arrival].arrival - er.clock()
+                            if wait > 0:
+                                time.sleep(wait)
+                        elif er.has_work:
+                            # queued/preempted/quarantined requests,
+                            # nothing running, no arrivals left: only an
+                            # admission (or a backoff expiry) can make
+                            # progress and this boundary produced none —
+                            # count it toward the watchdog instead of
+                            # busy-spinning
+                            er.note_stall()
+                out = er.result()
+                pol = er.obs.policy
+                if er.obs.enabled and pol is not None and pol.export_dir:
+                    out["exports"] = er.obs.export(pol.export_dir)
+                return out
+        finally:
+            if own_journal:
+                journal.close()     # no-op after a crash() in step()
 
 
 class EngineRun:
@@ -482,7 +504,9 @@ class EngineRun:
     :meth:`step`.
 
     The split from :class:`PagedServingEngine` (entry points, stateless
-    across runs) keeps one engine reusable across runs, each with its own
+    across runs) keeps one engine reusable across runs — a
+    :class:`~repro_torch.serving.cluster.ServingCluster` holds one engine
+    and N EngineRuns stepped round-robin — each with its own
     page pool, block tables, tenant ledgers, and prefix trie.
     ``submit`` injects work mid-run and ``evacuate`` empties the run for
     a graceful drain, with every running request preserved as a verified
@@ -492,7 +516,8 @@ class EngineRun:
     def __init__(self, engine: PagedServingEngine, params, *,
                  faults: FaultPlan | None = None,
                  recovery: RecoveryPolicy | None = None,
-                 clock=None, obs: Observability | None = None):
+                 clock=None, journal=None,
+                 obs: Observability | None = None):
         self.engine = engine
         self.params = params
         pcfg = engine.pcfg
@@ -536,6 +561,12 @@ class EngineRun:
             "serving_queued_requests",
             "pending + preempted across tenants", rep)
         self.request_records: list[dict] = []
+        # the write-ahead journal (serving/journal.py), when durability
+        # is on: lifecycle records are emitted inside the boundary
+        # protocol below, and the recovery manager shares the writer so
+        # dead letters round-trip through it
+        self.journal = journal
+        self.rec.journal = journal
         self.cache = init_paged_cache(engine.model.cfg, pcfg,
                                       engine.cache_dtype, engine.device)
         r, m = pcfg.max_slots, pcfg.max_blocks
@@ -567,10 +598,18 @@ class EngineRun:
                     lambda site, k: self.tracer.event(
                         None, "FAULT", self.boundary, self.clock(),
                         site=site, opportunity=k))
+        if journal is not None:
+            journal.bind_metrics(obs)
+            # spilled images name the cache dtype in their sidecar
+            journal.image_dtype = engine.plan.cache_dtype
 
     # ----------------------------------------------------------- frontend
     def submit(self, req: Request) -> None:
         self.sched.submit(req)
+        # journal AFTER validation: a rejected submit was never accepted,
+        # so there is nothing to make durable
+        if self.journal is not None:
+            self.journal.submit(req)
         if self.tracer is not None:
             self.tracer.event(req.rid, "SUBMIT", self.boundary,
                               self.clock(), tenant=req.tenant,
@@ -599,6 +638,8 @@ class EngineRun:
                 self.sched.complete(slot)
                 self._park_slot(slot)
                 self._record_done(req)
+                if self.journal is not None:
+                    self.journal.complete(req)
 
     def _request_record(self, req: Request) -> dict:
         """Measured per-request latencies, all relative to arrival —
@@ -682,6 +723,8 @@ class EngineRun:
             swap = self.sched.rm.preempt(req, requeue=False)
             self.engine._swap_out(self.cache, swap, self.faults)
             self._vacate(req)
+            if self.journal is not None:
+                self.journal.spill_image(req)
         else:
             # no committed state to preserve: full restart
             self.sched.rm.release_request(req)
@@ -727,6 +770,16 @@ class EngineRun:
         engine, sched, rec = self.engine, self.sched, self.rec
         faults, clock = self.faults, self.clock
         bt, seq_lens = self.bt, self.seq_lens
+        # the process_crash site: probed only when a journal is armed —
+        # without one a process death is unrecoverable and injecting it
+        # would only prove the obvious.  The journal drops its unflushed
+        # buffer (kill -9: only fsync'd records survive) and the
+        # exception escapes run() entirely; RestartRecovery is the only
+        # way back.
+        if self.journal is not None and faults is not None \
+                and faults.should_fire("process_crash"):
+            self.journal.crash()
+            raise ProcessCrashed(self.boundary + 1)
         self.boundary += 1
         boundary = self.boundary
         # recovery preflight: quarantined requests whose backoff
@@ -745,6 +798,11 @@ class EngineRun:
         for req in preempted:
             engine._swap_out(self.cache, req.swap, faults)
             self._park_slot(req.swap.slot)
+            if self.journal is not None:
+                # spill the host image beside the journal: a crash from
+                # here on restores this request through the verified-
+                # swap-image lane instead of restarting it
+                self.journal.spill_image(req)
             if self.tracer is not None:
                 self.tracer.event(req.rid, "PREEMPT", boundary, clock(),
                                   by=req.preempted_by,
@@ -832,9 +890,15 @@ class EngineRun:
                     self._start_request(req, first, clock())
                     self.n_prefill_dispatches += 1
                     ok_admitted.append(req)
-            if self.tracer is not None:
+            if self.journal is not None:
                 # before finish_boundary: it clears req.swap, which is
                 # what distinguishes a restore from a fresh admission
+                rest_ids = set(map(id, restored))
+                for req in ok_admitted:
+                    self.journal.admit(req,
+                                       restore=id(req) in rest_ids)
+            if self.tracer is not None:
+                # likewise before finish_boundary, for the restore flag
                 rest_ids = set(map(id, restored))
                 for req in ok_admitted:
                     self.tracer.event(req.rid, "ADMIT", boundary,
@@ -877,6 +941,11 @@ class EngineRun:
         # instant is exactly what the device pages back — the
         # watermark every later rollback truncates to
         rec.checkpoint(sched.running.values())
+        if self.journal is not None:
+            # the durable twin of rec.checkpoint: committed-token
+            # watermarks, batched one record per boundary and fsync'd on
+            # the plan's cadence
+            self.journal.checkpoint(boundary, sched.running.values())
         # activity is a pure function of scheduler state: stalled
         # slots sit a segment out (their frozen write slot stays
         # inside pages they own), everyone else runs to max_new.
@@ -995,6 +1064,8 @@ class EngineRun:
             self.engine._swap_out(self.cache, swap, self.faults)
             req.n_preempted += 1
             self._vacate(req)
+            if self.journal is not None:
+                self.journal.spill_image(req)
             out.append(req)
         out.extend(self.sched.rm.drain_queued())
         out.extend(self.rec.drain_quarantined())
@@ -1022,6 +1093,10 @@ class EngineRun:
                **self.sched.stats()}
         if self.faults is not None:
             out["faults"] = self.faults.summary()
+        if self.journal is not None:
+            out["journal"] = {"n_appended": self.journal.n_appended,
+                              "n_flushes": self.journal.n_flushes,
+                              "n_spilled": self.journal.n_spilled}
         return out
 
 

@@ -21,9 +21,10 @@ the allocator may already have handed to another request.
 The page size is an optimization knob like any tile size: small pages
 waste less pool memory on partial tails (internal fragmentation ~
 ``page_size/2`` tokens per request) but mean more page steps for the
-paged decode kernel; big pages invert the trade.  The layout is fixed
-once allocated.  (The JAX package reads a tuned page size back from its
-autotuner; that readback waits for the autotuner's port.)
+paged decode kernel; big pages invert the trade.  It is tuned per shape
+through kernels/autotune.py (``flash_decode_paged``) and read back via
+:func:`preferred_page_size` at pool-construction time — the layout is
+fixed once allocated.
 """
 
 from __future__ import annotations
@@ -516,3 +517,39 @@ def init_paged_cache(cfg: ArchConfig, pcfg: PagedCacheConfig,
         "seq_lens": torch.zeros((pcfg.max_slots,), dtype=torch.int32,
                                 device=dev),
     }
+
+
+def preferred_page_size(cfg: ArchConfig, pcfg_slots: int, max_len: int, *,
+                        device=None) -> int:
+    """Tuned page size for this arch's decode shape, from the autotuner's
+    persisted cache for ``device``'s backend (pure read — tuning happens
+    in the TUNE task or the ``tuned_*`` wrappers, never at
+    pool-construction time).  Falls back to the kernel default on a miss.
+
+    Thin wrapper over the consolidated readback
+    (:func:`repro_torch.kernels.autotune.tile_readback` — the relax keys
+    live in ``autotune.TILE_RELAX``); the provenance-tracked form is
+    ``ServingPlan.resolve`` (serving/plan.py)."""
+    from repro_torch.kernels import autotune
+    prob = autotune.flash_decode_paged_problem(
+        pcfg_slots, cfg.n_heads, cfg.n_kv_heads, cfg.hd, max_len, cfg.adt)
+    tile, _ = autotune.tile_readback("flash_decode_paged", prob,
+                                     device=device)
+    return int(tile["page_size"])
+
+
+def preferred_segment_len(cfg: ArchConfig, pcfg_slots: int, max_len: int,
+                          *, device=None) -> int:
+    """Tuned decode-segment length (scheduler cadence) for this arch's
+    serving shape — same pure-read contract as
+    :func:`preferred_page_size`.  The problem is keyed against the tuned
+    page size, so TUNE picks the cadence for the pool layout it itself
+    selected; with it comes the resource manager's default growth granule
+    (``PagedCacheConfig.growth_granule`` = pages per segment)."""
+    from repro_torch.kernels import autotune
+    ps = preferred_page_size(cfg, pcfg_slots, max_len, device=device)
+    prob = autotune.paged_segment_problem(
+        pcfg_slots, cfg.n_heads, cfg.n_kv_heads, cfg.hd, max_len, ps,
+        cfg.adt)
+    tile, _ = autotune.tile_readback("paged_segment", prob, device=device)
+    return int(tile["segment_len"])

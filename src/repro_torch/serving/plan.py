@@ -9,10 +9,11 @@ A :class:`ServingPlan` folds all of it into one frozen, JSON-round-trip
 dataclass:
 
 - the paged-cache geometry and scheduler cadence (``cache``);
-- how each tuned knob was obtained (``provenance``; the JAX package's
-  ``ServingPlan.resolve`` fills it from its autotuner — that readback
-  waits for the autotuner's port, so hand-assembled plans carry it
-  empty);
+- how each tuned knob was obtained (``provenance``: the
+  :meth:`resolve` step reads page_size and segment_len back from the
+  autotuner's persisted cache through the consolidated
+  :func:`repro_torch.kernels.autotune.tile_readback` and records per knob
+  whether the value was ``tuned``/``relaxed``/``default``/``explicit``);
 - admission/growth/retention policy (all `PagedCacheConfig` fields:
   ``prefill_bucket``, ``growth_pages``, ``retain_pages``,
   prefix-sharing flags);
@@ -194,6 +195,90 @@ class ServingPlan:
         """Cache slots one fully generated request occupies (+1: the
         final decode step still writes its token's K/V)."""
         return self.max_prompt_len + self.max_new_tokens + 1
+
+    # ------------------------------------------------------------ resolve
+    @classmethod
+    def resolve(cls, cfg, *, slots: int, max_prompt_len: int,
+                max_new_tokens: int, pool_slots: int | None = None,
+                page_size: int | None = None,
+                page_size_cap: int | None = None,
+                segment_len: int | None = None,
+                prefill_mode: str = "batched",
+                cache_dtype: str = "bfloat16",
+                tenants=(), n_replicas: int = 1,
+                health: HealthPolicy | None = None,
+                durability: DurabilityPolicy | None = None,
+                observability: ObservabilityPolicy | None = None,
+                cache_path: str | None = None,
+                device=None,
+                **cache_overrides: Any) -> "ServingPlan":
+        """The one provenance-tracked readback-and-geometry step.
+
+        Reads the tuned page size (``flash_decode_paged``) and
+        decode-segment cadence (``paged_segment``) back from the
+        autotuner's persisted cache for ``device``'s backend (the card
+        unless ``"cpu"``) via
+        :func:`repro_torch.kernels.autotune.tile_readback`, then derives
+        the pool geometry — ``blocks = ceil(cap / page_size)``,
+        ``n_pages = pool_slots * blocks + 1`` (+1: the scratch page).
+
+        ``page_size``/``segment_len`` override the readback (recorded as
+        ``explicit``); ``page_size_cap`` bounds a tuned page size by a
+        geometric constraint (recorded as ``capped`` when it bites).
+        ``pool_slots`` sizes the pool for fewer whole lifetimes than
+        ``slots`` (oversubscription).  Extra keyword args pass through to
+        :class:`PagedCacheConfig` (``prefill_bucket``, ``growth_pages``,
+        ``retain_pages``, ...) and are recorded as ``explicit``.
+        """
+        from repro_torch.kernels import autotune
+
+        cap = max_prompt_len + max_new_tokens + 1
+        adt = getattr(cfg, "adt", None) or "float32"
+        prov: dict[str, str] = {}
+        if page_size is None:
+            prob = autotune.flash_decode_paged_problem(
+                slots, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cap, adt)
+            tile, src = autotune.tile_readback("flash_decode_paged", prob,
+                                               cache_path=cache_path,
+                                               device=device)
+            page_size, prov["page_size"] = int(tile["page_size"]), src
+        else:
+            page_size, prov["page_size"] = int(page_size), "explicit"
+        if page_size_cap is not None and page_size > page_size_cap:
+            page_size, prov["page_size"] = int(page_size_cap), "capped"
+        if segment_len is None:
+            prob = autotune.paged_segment_problem(
+                slots, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cap,
+                page_size, adt)
+            tile, src = autotune.tile_readback("paged_segment", prob,
+                                               cache_path=cache_path,
+                                               device=device)
+            segment_len, prov["segment_len"] = int(tile["segment_len"]), src
+        else:
+            segment_len, prov["segment_len"] = int(segment_len), "explicit"
+        blocks = -(-cap // page_size)
+        pool = slots if pool_slots is None else pool_slots
+        cache = PagedCacheConfig(page_size=page_size,
+                                 n_pages=pool * blocks + 1,
+                                 max_slots=slots, max_blocks=blocks,
+                                 segment_len=segment_len,
+                                 **cache_overrides)
+        for k in cache_overrides:
+            prov[k] = "explicit"
+        prov["durability"] = "default" if durability is None else "explicit"
+        prov["observability"] = \
+            "default" if observability is None else "explicit"
+        return cls(arch=str(getattr(cfg, "name", "")), cache=cache,
+                   prefill_mode=prefill_mode, cache_dtype=cache_dtype,
+                   tenants=tuple(tenants or ()), n_replicas=n_replicas,
+                   health=health if health is not None else HealthPolicy(),
+                   durability=(durability if durability is not None
+                               else DurabilityPolicy()),
+                   observability=(observability
+                                  if observability is not None
+                                  else ObservabilityPolicy()),
+                   max_prompt_len=max_prompt_len,
+                   max_new_tokens=max_new_tokens, provenance=prov)
 
     # -------------------------------------------------------- (de)serialize
     def to_dict(self) -> dict[str, Any]:

@@ -259,8 +259,14 @@ def test_entry_points_raise_without_cuda(monkeypatch, cache_path):
         tat.tune("block_sparse_matmul", prob, cache_path=cache_path)
     with pytest.raises(RuntimeError, match="CUDA"):
         ModelGen(model="jet_dnn", train_en=False).run(MetaModel(), [])
-    with pytest.raises(NotImplementedError, match="SERVE"):
-        tat.KERNELS["paged_segment"].make_runner({}, {}, "cpu")
+    # the paged_segment runner runs on the CPU (plain versions), as every
+    # runner does; only tuning on a missing card raises
+    prob = tat.paged_segment_problem(2, 4, 2, 8, 32, 8, "float32")
+    outs = tat.KERNELS["paged_segment"].make_runner(
+        prob, {"segment_len": 8}, "cpu")()
+    assert tuple(outs.shape) == (8, 2) and outs.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tat.tune("paged_segment", prob, cache_path=cache_path)
 
 
 # ------------------------------------------------------- derive_problems
