@@ -20,7 +20,9 @@ Phases, each printing one JSON line or more:
                bit for bit), quant_matmul exactly equal on the variant
                each shape takes (int32 wrap past K = 133,143 included),
                and equal bits from two launches and from forced split
-               counts; each wrapper's shared-memory model and
+               counts; the INT8 straight-through product
+               (``Int8MatmulSTE``): forward bit-equal, backward the fp32
+               products of ``_int8_mm_bwd``; each wrapper's shared-memory model and
                quant_matmul's split plan against the numbers its kernel
                library exports; then the bf16 tensor-core variants of
                flash_prefill_ragged and flash_attention at D = 64 and
@@ -59,8 +61,10 @@ Phases, each printing one JSON line or more:
                rows split their device time by kernel (torch.profiler);
 8. tune      — the TUNE O-task's flow at full width: ``ModelGen``
                (Qwen2-7B, 28 layers, bf16, seed 0) → a 50 % block mask
-               on ``lm_head`` (standing in for PRUNING, whose LM path
-               fine-tunes and waits for the training slice) → ``Tune``
+               on ``lm_head`` (standing in for PRUNING, whose LM
+               fine-tune keeps AdamW's fp32 moments and does not fit 28
+               layers on one card; phase 11 runs PRUNING itself on a
+               2-layer cut) → ``Tune``
                over the four largest problems, with launch counts equal
                to the trials' (warmup + iters), every GEMM launch on its
                tensor-core variant, a second execution all cache hits,
@@ -89,7 +93,24 @@ Phases, each printing one JSON line or more:
                tokens equal the unjournaled engine's, no swap image of the
                single engine outlives it, the surviving pools drain.
                Phases 9 and 10 run before phase 6, whose rows report
-               their launch counts.
+               their launch counts;
+11. designflow — the paper's design flow with training, at the JAX
+               package's defaults: (a) ``combined_strategy("resnet9",
+               "SPQ")`` (Fig. 2(b)) at published widths, each O-task's
+               probes, the selected results and effective MACs / weight
+               bits against MODEL-GEN's; (b) ``combined_strategy(
+               "jet_dnn", "QP")`` twice, PRUNING fine-tuning under the
+               INT8 policy QUANTIZATION chose (quant_matmul in training's
+               forward): launches equal to the INT8 ``linear`` forwards,
+               each on the variant its K gives, and the two runs' traces
+               and final weights equal bit for bit; (c)
+               ``combined_strategy("qwen2-7b", "QP")`` with MODEL-GEN
+               training, full width cut to 2 layers (AdamW's fp32
+               moments), every quant_matmul launch on "tc"; (d)
+               ``train_classifier`` (jet_dnn, INT8) and ``lm_finetune``
+               (qwen2-smoke, masked) for 3 steps on the CPU and on the
+               card from one init, within stated tolerances.  Runs before
+               phase 6, whose rows report its launch counts.
 
 Then one ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line, and the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises and
@@ -103,9 +124,10 @@ busy share, the admission dispatches' share of device time, the top
 kernels and host ops — and over 16 contiguous decode steps under each
 policy) runs only when asked.
 
-Usage: ``python3 chip_smoke.py [--phases 1,2,3,4,5,6,8,9,10[,7]]
+Usage: ``python3 chip_smoke.py [--phases 1,2,3,4,5,6,8,9,10,11[,7]]
 [--src DIR]``; ``--phases 1,2,9,10`` builds the kernels and drives the
-SERVE and durability paths alone.
+SERVE and durability paths alone, ``--phases 1,2,3,11`` the design flow
+with training.
 ``--src`` drives the ``repro_torch`` under another tree (e.g. the parent
 commit unpacked beside this one) with this script's phases; with
 ``--phases 1,6`` that times both commits' kernels with the same rows in one
@@ -360,7 +382,12 @@ QMM_SHAPES = ((8, 3584, 18944), (8, 18944, 3584), (4096, 3584, 18944),
               (4096, 18944, 3584), (3, 56, 40), (5, 100, 17),
               (130, 72, 200), (128, 152064, 3584), (3, 80, 40),
               (17, 2064, 1000), (64, 1024, 200), (65, 272, 136),
-              (70, 4112, 300), (200, 512, 520))
+              (70, 4112, 300), (200, 512, 520), (512, 16, 64), (512, 32, 5),
+              (512, 512, 10))
+# the INT8 straight-through product (models/common.py::Int8MatmulSTE) at
+# the bench models' evaluation shapes and a Qwen2-7B training forward
+STE_SHAPES = ((512, 16, 64), (512, 32, 5), (512, 512, 10),
+              (256, 3584, 18944))
 
 
 def _expect_qmm(qmm, gemm_tc, m, k, n, splits=None) -> None:
@@ -440,6 +467,55 @@ def _check_quant_matmul(gen) -> dict:
             raise AssertionError(f"quant_matmul {(m, k, nn)} bits: {same}")
         bits[str((m, k, nn))] = same
     return {"cases": n_cases + 1, "variants": variants, "bits": bits}
+
+
+def _check_ste(gen) -> dict:
+    """``Int8MatmulSTE`` on CUDA tensors at :data:`STE_SHAPES`, fp32 and
+    bf16: the forward launches quant_matmul once and equals its plain
+    version bit for bit; the backward launches nothing and gives the fp32
+    products of the JAX package's ``_int8_mm_bwd`` — equal to the card's
+    own fp32 products, and within 5e-5 of the largest of the CPU's
+    float64 products (fp32: a sum over K = 18,944; bf16: 2**-7)."""
+    import torch
+    from repro_torch.kernels import quant_matmul as qmm
+    from repro_torch.models.common import Int8MatmulSTE
+    out = {}
+    for m, k, n in STE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((m, k), generator=gen).to(dtype)
+            w = (0.02 * torch.randn((k, n), generator=gen)).to(dtype)
+            g = torch.randn((m, n), generator=gen)
+            xd = x.cuda().requires_grad_(True)
+            wd = w.cuda().requires_grad_(True)
+            before = qmm.launches
+            y = Int8MatmulSTE.apply(xd, wd)
+            fwd = qmm.launches - before
+            y.backward(g.cuda())
+            torch.cuda.synchronize()
+            bwd = qmm.launches - before - fwd
+            gx = torch.matmul(g.cuda(), wd.detach().float().t()).to(dtype)
+            gw = torch.matmul(xd.detach().float().t(), g.cuda()).to(dtype)
+            gx_cpu = (g.double() @ w.double().t()).float()
+            gw_cpu = (x.double().t() @ g.double()).float()
+            rel = max(float((xd.grad.float().cpu() - gx_cpu).abs().max()
+                            / gx_cpu.abs().max()),
+                      float((wd.grad.float().cpu() - gw_cpu).abs().max()
+                            / gw_cpu.abs().max()))
+            ok = {"forward_equal": torch.equal(
+                      y.detach(), qmm.quant_matmul_plain(xd.detach(),
+                                                         wd.detach())),
+                  "launches": (fwd, bwd) == (1, 0),
+                  "grads_equal": torch.equal(xd.grad, gx)
+                  and torch.equal(wd.grad, gw),
+                  "grad_dtypes": xd.grad.dtype == wd.grad.dtype == dtype,
+                  "cpu_rel": rel <= (5e-5 if dtype == torch.float32
+                                     else 2**-7)}
+            if not all(ok.values()):
+                raise AssertionError(f"Int8MatmulSTE {(m, k, n)} {dtype}: "
+                                     f"{ok} (rel {rel})")
+            out[f"{(m, k, n)} {str(dtype)[6:]}"] = {
+                "variant": qmm.last_launch["variant"], "grad_rel_cpu": rel}
+    return out
 
 
 # index lists of a (384, 256) weight (3 x 2 blocks): a dead column and a
@@ -925,6 +1001,7 @@ def phase_kernels() -> dict:
                 n_cases += 1
     qmm_checks = _check_quant_matmul(gen)
     n_qmm = qmm_checks["cases"]
+    ste = _check_ste(gen)
     worst["quant_matmul"] = {"bfloat16": 0.0, "float32": 0.0}
     worst["block_sparse_matmul"], worst["flash_attention"] = {}, {}
     n_cases += _check_block_sparse(gen, worst)
@@ -943,6 +1020,7 @@ def phase_kernels() -> dict:
           "quant_matmul": f"{n_qmm} cases exactly equal, int32 wrap "
                           f"included", "quant_matmul_variants":
           qmm_checks["variants"], "quant_matmul_bits": qmm_checks["bits"],
+          "int8_ste": ste,
           "smem_models_checked": n_smem, "max_abs_err": worst})
     return worst
 
@@ -1254,7 +1332,9 @@ def phase_generate(cfg, lm) -> dict:
 def _block_masks_task():
     """A λ-task that puts ``handle.child(masks=build_masks(handle.params,
     rate, "block"))`` into the model space: it stands in for the PRUNING
-    O-task, whose LM path fine-tunes and waits for the training slice."""
+    O-task, whose LM fine-tune (AdamW's fp32 moments beside the weights)
+    does not fit all 28 layers on one card; phase 11 runs PRUNING on a
+    2-layer cut."""
     from repro_torch.core.metamodel import LEVEL_DNN
     from repro_torch.core.task import LambdaTask
     from repro_torch.sparsity.masks import build_masks
@@ -1363,8 +1443,9 @@ def phase_tune() -> dict:
     summary = {"phase": "tune", "arch": "qwen2-7b", "layers": 28,
                "dtype": "bfloat16", "accuracy": gen_art.metrics["accuracy"],
                "pruning": "50 % block mask on lm_head from build_masks; "
-                          "stands in for the PRUNING O-task (LM pruning "
-                          "fine-tunes and waits for the training slice)",
+                          "stands in for the PRUNING O-task, whose LM "
+                          "fine-tune does not fit 28 layers on one card "
+                          "(phase 11 runs it on 2)",
                "sparsity": masked.metrics["sparsity"], "max_live": max_live,
                "problems": len(problems),
                "search_steps": meta.get("tune.result")["search_steps"],
@@ -1952,6 +2033,315 @@ def phase_durable(model, params, device="cuda") -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- phase 11
+# Qwen2-7B's O-tasks at full width, cut to 2 layers: a trained parameter
+# costs 2 (bf16) + 2 (gradient) + 8 bytes (AdamW's two fp32 moments), so
+# 28 layers (7.6 B parameters) need ~91 GB before activations; 2 layers
+# (1.56 B parameters, the embedding and lm_head included) ~20 GB.
+DESIGNFLOW_LM_LAYERS = 2
+# the card against the CPU, 3 steps from one CPU-drawn init (phase 11 d)
+CARD_CPU_STEPS = 3
+JET_CARD_TOL = 1e-4        # jet_dnn under INT8: losses (rel) and weights
+LM_CARD_LOSS_RTOL = 2e-3   # qwen2-smoke (bf16 products): losses
+LM_CARD_NEAR, LM_CARD_SHARE = 1e-4, 0.95   # weights within, share of them
+
+
+def _count_int8_linears(modules):
+    """Wrap the ``linear`` that each of ``modules`` calls, counting every
+    INT8 forward by the quant_matmul variant its K gives and by its M
+    (rows).  Returns (counts, restore)."""
+    from repro_torch.kernels import gemm_tc
+    from repro_torch.quant.policy import INT8
+    counts = {"tc": 0, "mma": 0, "m": {}}
+    originals = [(mod, mod.linear) for mod in modules]
+
+    def counted_linear(orig):
+        def linear(ctx, name, x, w, b=None):
+            if ctx.level_for(name) == INT8:
+                counts[gemm_tc.qmm_variant(w.shape[0])] += 1
+                m = str(x.numel() // x.shape[-1])
+                counts["m"][m] = counts["m"].get(m, 0) + 1
+            return orig(ctx, name, x, w, b)
+        return linear
+
+    for mod, orig in originals:
+        mod.linear = counted_linear(orig)
+
+    def restore():
+        for mod, orig in originals:
+            mod.linear = orig
+    return counts, restore
+
+
+def _check_int8_launches(part, counts, int8) -> dict:
+    """quant_matmul launched once per INT8 ``linear`` forward, each on the
+    variant its K gives."""
+    from repro_torch.kernels import quant_matmul as qmm
+    got = {"launches": qmm.launches, "launches_tc": qmm.launches_tc}
+    want = {"launches": int8["tc"] + int8["mma"], "launches_tc": int8["tc"]}
+    if got != want or counts["quant_matmul"] != got["launches"]:
+        raise AssertionError(f"phase 11 ({part}): quant_matmul {got}, INT8 "
+                             f"linear forwards {int8}")
+    return {**got, "int8_linears_by_m": int8["m"]}
+
+
+def _probe_trace(meta) -> dict:
+    """Each O-task's probes: candidate, accuracy, feasible and the
+    resource metrics recorded with it."""
+    keys = ("rate", "scale", "assignment", "accuracy", "feasible",
+            "effective_macs", "weight_bits", "sparsity")
+    out = {}
+    for task, event in (("S", "scaling.probe"), ("P", "pruning.probe"),
+                        ("Q", "quantization.probe")):
+        probes = [{k: p[k] for k in keys if k in p}
+                  for p in meta.trace(event)]
+        if probes:
+            out[task] = probes
+    return out
+
+
+def _flow_summary(meta, order: str) -> dict:
+    """The selected results and each task's wall seconds; effective MACs
+    and weight bits against MODEL-GEN's."""
+    gen = next(iter(meta.models("dnn"))).metrics
+    last = meta.latest("dnn").metrics
+    results = {}
+    for ch, key in (("S", "scaling.result"), ("P", "pruning.result"),
+                    ("Q", "quantization.result")):
+        res = meta.get(key)
+        if ch in order and res is not None:
+            results[ch] = {k: res[k] for k in (
+                "scale", "pruning_rate", "assignment", "accuracy",
+                "base_accuracy", "search_steps", "effective_macs",
+                "weight_bits") if k in res}
+    return {"task_s": {e["task"]: round(e["seconds"], 3)
+                       for e in meta.trace("task.done")},
+            "model_gen_accuracy": gen["accuracy"], "results": results,
+            "effective_macs": [gen["effective_macs"],
+                               last["effective_macs"]],
+            "weight_bits": [gen["weight_bits"], last["weight_bits"]],
+            "effective_macs_ratio": last["effective_macs"]
+            / gen["effective_macs"],
+            "weight_bits_ratio": last["weight_bits"] / gen["weight_bits"]}
+
+
+def _designflow_bench(model: str, order: str, *, int8_modules=(),
+                      device="cuda", cfg=None):
+    """``combined_strategy(model, order)`` at the JAX package's defaults
+    (or the meta-model ``cfg``) on ``device``; launch counts read just
+    after.  Returns (meta, line)."""
+    import torch
+    from repro_torch.core.metamodel import MetaModel
+    from repro_torch.core.strategies import combined_strategy
+    int8, restore = _count_int8_linears(int8_modules)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    try:
+        meta = combined_strategy(model, order,
+                                 model_params={"device": device}).execute(
+                                     MetaModel(dict(cfg or {})))
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    wall = time.perf_counter() - t0
+    counts = _read_counts()
+    line = {"model": model, "order": order, "wall_s": wall,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "probes": _probe_trace(meta), **_flow_summary(meta, order),
+            "launches": counts, "launches_tc": _read_tc_counts()}
+    if int8_modules:
+        line["quant_matmul"] = _check_int8_launches(order, counts, int8)
+    return meta, line
+
+
+def _spq_resnet9(**kw) -> dict:
+    """(a) Fig. 2(b) on ResNet9 at its published widths: SCALING →
+    PRUNING → QUANTIZATION, MODEL-GEN 3,072 samples and 5 epochs."""
+    from repro_torch.models import cnn
+    meta, line = _designflow_bench("resnet9", "SPQ", int8_modules=(cnn,),
+                                   **kw)
+    if meta.get("quantization.result") is None or \
+            line["weight_bits_ratio"] > 1.0:
+        raise AssertionError(f"phase 11 (a): {line['results']}")
+    return line
+
+
+def _flow_state(meta) -> tuple:
+    """The probe traces (timestamps and seconds dropped) and the final
+    artifact's parameters and masks."""
+    from repro_torch.sparsity.masks import flatten_params
+    events = [{k: v for k, v in e.items() if k not in ("t", "seconds")}
+              for e in meta.log if e["event"] != "task.start"]
+    art = meta.latest("dnn").payload
+    return events, flatten_params(art.params), dict(art.masks or {})
+
+
+def _qp_jet_dnn(**kw) -> dict:
+    """(b) QUANTIZATION → PRUNING on jet_dnn: PRUNING fine-tunes under the
+    INT8 policy QUANTIZATION chose, so quant_matmul runs in training's
+    forward.  Run twice with one seed: the traces and the final weights
+    must be equal bit for bit."""
+    import torch
+    from repro_torch.models import cnn
+    runs = []
+    for _ in range(2):
+        meta, line = _designflow_bench("jet_dnn", "QP", int8_modules=(cnn,),
+                                       **kw)
+        runs.append((line, _flow_state(meta)))
+        del meta
+    (line, (ev0, p0, m0)), (line1, (ev1, p1, m1)) = runs
+    same = {"trace": ev0 == ev1,
+            "params": list(p0) == list(p1) and all(
+                torch.equal(p0[k], p1[k]) for k in p0),
+            "masks": list(m0) == list(m1) and all(
+                torch.equal(m0[k], m1[k]) for k in m0),
+            "launches": line["quant_matmul"] == line1["quant_matmul"]}
+    assignment = line["results"]["Q"]["assignment"]
+    train_int8 = sum(n for m, n in line["quant_matmul"][
+        "int8_linears_by_m"].items() if m == "128")
+    if not all(same.values()) or "int8" not in assignment.values() \
+            or not train_int8:
+        raise AssertionError(f"phase 11 (b): same={same}, assignment "
+                             f"{assignment}, INT8 training forwards "
+                             f"{train_int8}")
+    line.update(bit_identical_rerun=same, int8_training_forwards=train_int8,
+                wall_s_second=line1["wall_s"], launches_second=line1[
+                    "launches"])
+    return line
+
+
+def _qp_qwen2(**kw) -> dict:
+    """(c) QUANTIZATION → PRUNING on Qwen2-7B at full width, cut to
+    :data:`DESIGNFLOW_LM_LAYERS` layers, MODEL-GEN training 5 steps."""
+    import torch
+    from repro_torch.configs import qwen2_7b
+    from repro_torch.models import layers, transformer
+    full = qwen2_7b.CONFIG
+    qwen2_7b.CONFIG = full.replace(n_layers=DESIGNFLOW_LM_LAYERS)
+    try:
+        meta, line = _designflow_bench("qwen2-7b", "QP",
+                                       int8_modules=(layers, transformer),
+                                       **kw)
+    finally:
+        qwen2_7b.CONFIG = full
+    qm = line["quant_matmul"]
+    rows = set(qm["int8_linears_by_m"])
+    if qm["launches_tc"] != qm["launches"] or not qm["launches"] \
+            or not rows <= {"1024", "256"}:
+        raise AssertionError(f"phase 11 (c): quant_matmul {qm}")
+    handle = meta.latest("dnn").payload
+    if handle.masks is None or any(p.requires_grad
+                                   for p in handle.params.parameters()):
+        raise AssertionError("phase 11 (c): the pruned LM carries no masks "
+                             "or trains on")
+    line.update(
+        layers=DESIGNFLOW_LM_LAYERS, d_model=full.d_model, d_ff=full.d_ff,
+        vocab=full.vocab_size, dtype=full.param_dtype,
+        cut=f"{full.n_layers} -> {DESIGNFLOW_LM_LAYERS} layers: AdamW's two "
+            f"fp32 moments make a trained parameter 12 bytes, 28 layers "
+            f"~91 GB; 2 layers ~20 GB",
+        int8_training_forwards=qm["int8_linears_by_m"].get("256", 0),
+        int8_training_note="PRUNING's LM fine-tune runs under the model's "
+                           "own policy (bf16), as in the JAX package; the "
+                           "INT8 policy reaches evaluation (M = 1,024)")
+    del meta, handle
+    torch.cuda.empty_cache()
+    return line
+
+
+def _card_vs_cpu() -> dict:
+    """(d) ``train_classifier`` (jet_dnn under the INT8 policy) and
+    ``lm_finetune`` (qwen2-smoke, unstructured masks at 0.3) for
+    :data:`CARD_CPU_STEPS` steps from one CPU-drawn init and the same
+    batches, on the CPU (plain versions) and on the card."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import synthetic
+    from repro_torch.models.api import build_model
+    from repro_torch.models.cnn import init_jet_dnn, jet_dnn_apply
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+    from repro_torch.quant.policy import PrecisionPolicy
+    from repro_torch.sparsity.masks import build_masks, prunable_paths
+    from repro_torch.tasks.train_utils import lm_finetune, train_classifier
+    out = {}
+    params = init_jet_dnn(torch.Generator().manual_seed(0))
+    data = synthetic.jet_dataset(CARD_CPU_STEPS * 128, seed=1)
+    policy = PrecisionPolicy(default="int8")
+    runs = [train_classifier(tree_map(lambda t: t.to(dev), params),
+                             jet_dnn_apply, data, epochs=1, policy=policy,
+                             seed=3) for dev in ("cpu", "cuda")]
+    (pc, lc), (pg, lg) = runs
+    loss_rel = max(abs(a - b) / abs(a) for a, b in zip(lc, lg))
+    w_abs = max(float((a - b.cpu()).abs().max()) for a, b in
+                zip(tree_leaves(pc), tree_leaves(pg)))
+    out["jet_dnn_int8"] = {"steps": len(lc), "loss_max_rel": loss_rel,
+                           "weight_max_abs": w_abs, "tol": JET_CARD_TOL}
+    if not (len(lc) == CARD_CPU_STEPS and loss_rel <= JET_CARD_TOL
+            and w_abs <= JET_CARD_TOL):
+        raise AssertionError(f"phase 11 (d) jet_dnn: {out}")
+
+    cfg = get_config("qwen2_7b", smoke=True)
+    cpu_model = build_model(cfg, device="cpu")
+    gpu_model = build_model(cfg, device="cuda")
+    lm = cpu_model.init(0)
+    lm_gpu = gpu_model.empty_params()
+    lm_gpu.load_state_dict(lm.state_dict())
+    masks = build_masks(lm, 0.3, "unstructured",
+                        prunable_paths(lm, min_size=64))
+
+    def batches(s):
+        t = synthetic.lm_tokens(4 * 64 + 1, cfg.vocab_size, seed=100 + s)
+        return {"tokens": t[:-1].reshape(4, 64),
+                "labels": t[1:].reshape(4, 64)}
+
+    tc, lc = lm_finetune(cpu_model, lm, batches, steps=CARD_CPU_STEPS,
+                         masks=masks)
+    tg, lg = lm_finetune(gpu_model, lm_gpu, batches, steps=CARD_CPU_STEPS,
+                         masks={k: v.cuda() for k, v in masks.items()})
+    sd_g = tg.state_dict()
+    diffs = torch.cat([(v.float() - sd_g[k].float().cpu()).abs().reshape(-1)
+                       for k, v in tc.state_dict().items()])
+    loss_rel = max(abs(a - b) / abs(a) for a, b in zip(lc, lg))
+    near = float((diffs <= LM_CARD_NEAR).float().mean())
+    bound = 2 * 1e-3 * CARD_CPU_STEPS + 1e-6
+    out["qwen2_smoke_masked"] = {
+        "steps": len(lc), "loss_max_rel": loss_rel,
+        "weight_max_abs": float(diffs.max()),
+        "share_within": [LM_CARD_NEAR, near], "tol": {
+            "loss_rel": LM_CARD_LOSS_RTOL, "share": LM_CARD_SHARE,
+            "max": bound}}
+    if not (loss_rel <= LM_CARD_LOSS_RTOL and near >= LM_CARD_SHARE
+            and float(diffs.max()) <= bound):
+        raise AssertionError(f"phase 11 (d) qwen2-smoke: {out}")
+    return out
+
+
+def phase_designflow(device="cuda", cfg=None) -> dict:
+    """The paper's design flow with training on the card: (a) ResNet9
+    SPQ, (b) jet_dnn QP twice, (c) Qwen2-7B QP on 2 layers, (d) the card
+    against the CPU.  Every part's counts are set to 0 before it and read
+    after; returns the sums of (a)-(c).  ``device`` and the meta-model
+    ``cfg`` (smaller flows) serve a rehearsal on the CPU."""
+    import torch
+    total = {name: 0 for name in KERNELS}
+    for part, fn in (("a", _spq_resnet9), ("b", _qp_jet_dnn),
+                     ("c", _qp_qwen2)):
+        line = fn(device=device, cfg=cfg)
+        emit({"phase": "designflow", "part": part, **line})
+        for counts in (line["launches"], line.get("launches_second", {})):
+            for name, n in counts.items():
+                total[name] += n
+        torch.cuda.empty_cache()
+    if device != "cuda":
+        return total
+    t0 = time.perf_counter()
+    cmp = _card_vs_cpu()
+    emit({"phase": "designflow", "part": "d", **cmp,
+          "wall_s": time.perf_counter() - t0})
+    return total
+
+
 PREFILL_RANGE = "burst_prefill"
 
 
@@ -2367,13 +2757,16 @@ def _flash_decode_row(gen, launches, flush, sdpa_gqa) -> dict:
 
 
 # Qwen2-7B's gate/up projection at decode (the row's own numbers) and at
-# the phase-5 prefill, its down projection at decode and at prefill, and
-# TUNE's two quant_matmul problems (embed and lm_head at M = 128):
+# the phase-5 prefill, its down projection at decode and at prefill,
+# TUNE's two quant_matmul problems (embed and lm_head at M = 128), and the
+# MLP of an INT8 training forward (4 x 64 tokens, phase 11's LM batch):
 # (label, M, K, N)
 QMM_ROWS = (("gate_up_8", 8, 3584, 18944), ("prefill", 4096, 3584, 18944),
             ("down_8", 8, 18944, 3584), ("prefill_down", 4096, 18944, 3584),
             ("tune_embed", 128, 152064, 3584),
-            ("tune_lm_head", 128, 3584, 152064))
+            ("tune_lm_head", 128, 3584, 152064),
+            ("train_up_256", 256, 3584, 18944),
+            ("train_down_256", 256, 18944, 3584))
 QMM_SUB_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "library_note", "quantize_ms", "wrapper_ms", "max_abs_err",
                 "shapes", "variant", "tiles", "swap", "splits",
@@ -2454,7 +2847,7 @@ def _row(name, source, replaces, launches, err, tol, kernel, plain, lib,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,8,9,10",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,8,9,10,11",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the tree whose repro_torch to drive (default: "
@@ -2495,6 +2888,7 @@ def main(argv=None) -> int:
     if 5 in phases:
         launches = phase_serve()
     tune_launches = phase_tune() if 8 in phases else {}
+    designflow_launches = phase_designflow() if 11 in phases else {}
     flow_launches, durable_launches = {}, {}
     if 9 in phases or 10 in phases:
         model = params = None
@@ -2514,6 +2908,7 @@ def main(argv=None) -> int:
         row["tune_launches"] = tune_launches.get(row["name"], 0)
         row["serveflow_launches"] = flow_launches.get(row["name"], 0)
         row["durable_launches"] = durable_launches.get(row["name"], 0)
+        row["designflow_launches"] = designflow_launches.get(row["name"], 0)
     if 7 in phases:
         phase_profile()
     emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 3)})

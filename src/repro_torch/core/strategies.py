@@ -1,14 +1,19 @@
-"""Prebuilt design flows (paper Fig. 2): the point of the paper is that
-these are a few lines to assemble and re-order.
+"""Prebuilt design flows (paper Fig. 2): single-O-task strategies and the
+combined cross-stage strategies, in any order — the point of the paper is
+that these are a few lines to assemble and re-order.
 
-    flow = tune_strategy("jet_dnn", device="cpu")   # MODEL-GEN → TUNE
-    flow = combined_strategy("qwen2-7b", "TV")
+    flow = pruning_strategy("jet_dnn")            # Fig. 2(a)
+    flow = combined_strategy("jet_dnn", "SPQ")    # Fig. 2(b)
+    flow = combined_strategy("jet_dnn", "PSQ")    # Fig. 2(c) variant
     flow = serve_strategy("qwen2-7b", device="cpu")   # → TUNE → SERVE
-    meta = run(flow, {"ModelGen.train_en": False})
+    meta = run(flow)
 
-The JAX package's ``core/strategies.py`` for the O-tasks the port has:
-:data:`O_TASKS` holds TUNE (``"T"``) and SERVE (``"V"``); PRUNING,
-SCALING, QUANTIZATION and SHARDING-SEARCH join with their slices.
+The JAX package's ``core/strategies.py``: :data:`O_TASKS` holds PRUNING
+(``"P"``), SCALING (``"S"``), QUANTIZATION (``"Q"``), TUNE (``"T"``) and
+SERVE (``"V"``).  SHARDING-SEARCH (``"H"``) and the dry-run flow
+(``dryrun_flow``: Lower → Compile → Roofline) wait for ROADMAP Queue 1,
+item 5, and raise.  Flows run on the card unless MODEL-GEN is given
+``device="cpu"``; the O-tasks run where MODEL-GEN's model lives.
 """
 
 from __future__ import annotations
@@ -18,10 +23,40 @@ from typing import Any
 from repro_torch.core.flow import DesignFlow
 from repro_torch.core.metamodel import MetaModel
 from repro_torch.tasks.model_gen import ModelGen
+from repro_torch.tasks.pruning import Pruning
+from repro_torch.tasks.quantization import Quantization
+from repro_torch.tasks.scaling import Scaling
 from repro_torch.tasks.serve import Serve
 from repro_torch.tasks.tune import Tune
 
-O_TASKS = {"T": Tune, "V": Serve}
+O_TASKS = {"P": Pruning, "S": Scaling, "Q": Quantization, "T": Tune,
+           "V": Serve}
+
+# O-tasks and flows of the JAX package that wait for a later slice
+UNPORTED = ("SHARDING-SEARCH (\"H\") and the dry-run flow wait for ROADMAP "
+            "Queue 1, item 5 (tasks/sharding_search.py, tasks/lower.py)")
+
+
+def pruning_strategy(model: str = "jet_dnn", *, device=None,
+                     **params) -> DesignFlow:
+    """Paper Fig. 2(a): MODEL-GEN → PRUNING."""
+    flow = DesignFlow(f"pruning({model})")
+    flow.chain(ModelGen(model=model, device=device), Pruning(**params))
+    return flow
+
+
+def scaling_strategy(model: str = "jet_dnn", *, device=None,
+                     **params) -> DesignFlow:
+    flow = DesignFlow(f"scaling({model})")
+    flow.chain(ModelGen(model=model, device=device), Scaling(**params))
+    return flow
+
+
+def quantization_strategy(model: str = "jet_dnn", *, device=None,
+                          **params) -> DesignFlow:
+    flow = DesignFlow(f"quantization({model})")
+    flow.chain(ModelGen(model=model, device=device), Quantization(**params))
+    return flow
 
 
 def tune_strategy(model: str = "jet_dnn", **params) -> DesignFlow:
@@ -57,24 +92,29 @@ def serve_strategy(model: str = "qwen2-7b",
     return flow
 
 
-def combined_strategy(model: str = "jet_dnn", order: str = "T",
+def combined_strategy(model: str = "jet_dnn", order: str = "SPQ",
                       task_params: dict[str, dict] | None = None,
                       model_params: dict | None = None) -> DesignFlow:
-    """Combined cross-stage strategy with O-tasks in ``order`` (one
-    character per task, :data:`O_TASKS`).  Reordering is a one-char edit
-    — the customizability claim of the paper."""
+    """Combined cross-stage strategy with O-tasks in ``order`` — e.g.
+    "SPQ" = scaling → pruning → quantization (paper Fig. 2(b)); "PS" =
+    pruning → scaling (Fig. 5(b)).  Reordering is a one-char edit — the
+    customizability claim of the paper."""
     task_params = task_params or {}
     unknown = sorted(set(order) - set(O_TASKS))
     if unknown:
-        raise NotImplementedError(
-            f"O-tasks {unknown} are not ported yet (have {sorted(O_TASKS)}; "
-            f"ROADMAP Queue 1)")
+        raise NotImplementedError(f"O-tasks {unknown}: {UNPORTED}")
     flow = DesignFlow(f"{'+'.join(order)}({model})")
     tasks: list[Any] = [ModelGen(model=model, **(model_params or {}))]
     for ch in order:
         tasks.append(O_TASKS[ch](**task_params.get(ch, {})))
     flow.chain(*tasks)
     return flow
+
+
+def dryrun_flow(arch: str, *args, **kwargs) -> DesignFlow:
+    """ModelGen → [O-tasks] → Lower → Compile → Roofline in the JAX
+    package; not ported."""
+    raise NotImplementedError(f"dryrun_flow({arch!r}): {UNPORTED}")
 
 
 def run(flow: DesignFlow, cfg: dict | None = None) -> MetaModel:

@@ -3,6 +3,7 @@
 ``build_model(cfg, policy, device=...)`` returns an :class:`LMModel`
 exposing ``init(seed)`` (randomly initialised parameters),
 ``empty_params()`` (uninitialised, for ``load_state_dict``), ``ctx(decode)``,
+``loss(params, batch)`` (the LM cross-entropy, differentiable),
 ``init_cache(batch, seq_len)`` (the contiguous decode cache),
 ``prefill(params, batch, cache)`` and ``decode_step(params, cache,
 tokens)`` over either cache layout.  The precision policy lives on the
@@ -26,6 +27,33 @@ from repro_torch.quant.policy import PrecisionPolicy
 DEFAULT_EXEMPT = ["*router*", "*w_if*", "*dt_*", "*A_log*", "*gate_logit*"]
 
 
+def _xent(cfg: ArchConfig, logits: torch.Tensor, labels: torch.Tensor):
+    """Per-token (nll, logz) in fp32, with the padded vocab columns
+    masked to -1e30 and, with ``cfg.loss_chunk``, the sequence taken
+    ``loss_chunk`` tokens at a time (bounds the fp32 softmax live set)
+    when it divides the sequence, as the JAX package's ``_xent``."""
+    v_real = cfg.vocab_size
+    v = logits.shape[-1]
+
+    def chunk_nll(lg, lb):
+        lf = lg.float()
+        if v > v_real:  # mask padded vocab columns exactly
+            col = torch.arange(v, device=lf.device)
+            lf = torch.where(col < v_real, lf, -1e30)
+        logz = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, lb[..., None].long())[..., 0]
+        return logz - gold, logz
+
+    c = cfg.loss_chunk
+    s = logits.shape[1]
+    if not c or s <= c or s % c:
+        return chunk_nll(logits, labels)
+    parts = [chunk_nll(logits[:, i:i + c], labels[:, i:i + c])
+             for i in range(0, s, c)]
+    return (torch.cat([p[0] for p in parts], dim=1),
+            torch.cat([p[1] for p in parts], dim=1))
+
+
 @dataclasses.dataclass
 class LMModel:
     cfg: ArchConfig
@@ -46,6 +74,22 @@ class LMModel:
     def empty_params(self) -> T.LM:
         """Uninitialised parameters on the model's device."""
         return T.LM(self.cfg, self.device)
+
+    def loss(self, params: T.LM, batch: dict, ctx: Ctx | None = None):
+        """Mean LM cross-entropy of ``batch["tokens"]`` (B, S) against
+        ``batch["labels"]`` (tensors on the model's device), plus the
+        1e-4 z-loss; returns (loss, {"nll", "ppl_proxy"}).  Uncached and
+        differentiable — unlike :meth:`prefill` and :meth:`decode_step`,
+        which run without autograd."""
+        ctx = ctx or self.ctx()
+        logits, _ = T.lm_apply(ctx, self.cfg, params, batch["tokens"])
+        nll, logz = _xent(self.cfg, logits, batch["labels"])
+        mean_nll = torch.mean(nll)
+        # z-loss for stability at scale
+        loss = mean_nll + 1e-4 * torch.mean(logz ** 2)
+        return loss, {"nll": mean_nll,
+                      "ppl_proxy": torch.exp(torch.clamp(mean_nll,
+                                                         max=20.0))}
 
     def init_cache(self, batch: int, seq_len: int,
                    dtype: torch.dtype = torch.bfloat16) -> dict:

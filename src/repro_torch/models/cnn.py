@@ -10,6 +10,14 @@ scale)`` → parameters (nested dicts of tensors, the JAX pytree's keys) and
 ``apply(ctx, params, x)``, with ``scale`` the SCALING O-task's width
 multiplier.  The public layouts are the JAX package's: NHWC inputs and HWIO
 convolution weights, permuted inside :func:`conv2d` for ``F.conv2d``.
+
+The O-tasks decide by accuracy thresholds, so a flow's decisions must not
+move with the caller's global flags or from run to run.  On a card cuDNN
+runs fp32 convolutions in TF32 unless told not to, and picks
+nondeterministic algorithms for their backward by default: every
+convolution here runs inside :func:`conv_flags` (full fp32, deterministic
+algorithms, no autotuning), and ``tasks/train_utils.py`` holds the same
+scope over each training step, so the backward is covered too.
 """
 
 from __future__ import annotations
@@ -60,8 +68,17 @@ def conv_init(gen: torch.Generator, k: int, cin: int, cout: int,
     return (w * scale).to(dtype)
 
 
+def conv_flags():
+    """Scope in which cuDNN convolutions (forward and backward) run in
+    fp32 without TF32, with deterministic algorithms and no benchmark
+    search; the caller's settings come back on exit."""
+    return torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                      deterministic=True, allow_tf32=False)
+
+
 def conv2d(x, w, stride: int = 1, padding: str = "SAME"):
-    """NHWC input, HWIO weight, fp32 arithmetic, output in x's dtype.
+    """NHWC input, HWIO weight, fp32 arithmetic (:func:`conv_flags`),
+    output in x's dtype.
     ``SAME`` pads (k - 1) / 2 on each side (odd k at stride 1, the only
     shapes the models use); ``VALID`` pads nothing."""
     kh, kw = w.shape[0], w.shape[1]
@@ -74,8 +91,10 @@ def conv2d(x, w, stride: int = 1, padding: str = "SAME"):
         pad = (0, 0)
     else:
         raise ValueError(f"unknown padding {padding!r}")
-    y = F.conv2d(x.float().permute(0, 3, 1, 2),
-                 w.float().permute(3, 2, 0, 1), stride=stride, padding=pad)
+    with conv_flags():
+        y = F.conv2d(x.float().permute(0, 3, 1, 2),
+                     w.float().permute(3, 2, 0, 1), stride=stride,
+                     padding=pad)
     return y.permute(0, 2, 3, 1).to(x.dtype)
 
 

@@ -83,7 +83,8 @@ def linear(ctx: Ctx, name: str, x: torch.Tensor, w: torch.Tensor,
       activations the bf16-rounded operands multiplied in fp32;
     - FP8: the weight stored as float8_e4m3fn, then the BF16 product;
     - INT8: the quant_matmul kernel (dynamic per-row activation and
-      per-column weight quantization, int32 accumulation).
+      per-column weight quantization, int32 accumulation), with a
+      straight-through backward (:class:`Int8MatmulSTE`).
     """
     level = ctx.level_for(name)
     out_dtype = x.dtype
@@ -142,12 +143,41 @@ def _bf16_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                                 w.to(torch.bfloat16).float())
 
 
+class Int8MatmulSTE(torch.autograd.Function):
+    """Dynamic-activation int8 x int8 product with a straight-through
+    backward: the port of the JAX package's ``_int8_mm_ste`` custom_vjp.
+
+    The forward is :func:`quant_matmul` on (M, K) x (K, N) — the CUDA
+    kernel for CUDA tensors, ``quant_matmul_plain`` for CPU ones — fp32
+    out.  The backward is ``_int8_mm_bwd``: the gradients of the
+    full-precision product, ``gx = g @ w.T`` and ``gw = x.T @ g`` in fp32,
+    cast to x's and w's dtypes, so int8 policies train (QAT semantics);
+    through the rounding alone every gradient would be 0.  These two are
+    plain products, outside any kernel, in the JAX package too."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x, w)
+        return quant_matmul(x, w)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, w = ctx.saved_tensors
+        gf = g.float()
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.matmul(gf, w.float().t()).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            gw = torch.matmul(x.float().t(), gf).to(w.dtype)
+        return gx, gw
+
+
 def _int8_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Flatten the leading axes to (M, K), run quant_matmul (fp32 out)
-    and cast to the activation dtype, as the JAX package's kernel path
-    does.  The straight-through backward waits for the training slice."""
+    """Flatten the leading axes to (M, K), run :class:`Int8MatmulSTE`
+    (quant_matmul forward, fp32 out) and cast to the activation dtype, as
+    the JAX package's kernel path does."""
     lead = x.shape[:-1]
-    y2 = quant_matmul(x.reshape(-1, x.shape[-1]), w)
+    y2 = Int8MatmulSTE.apply(x.reshape(-1, x.shape[-1]), w)
     return y2.reshape(*lead, w.shape[-1]).to(x.dtype)
 
 

@@ -75,7 +75,7 @@ class LM(nn.Module):
             self.lm_head = L._param(head)
 
 
-    def param_tree(self) -> dict:
+    def param_tree(self, per_block: bool = False) -> dict:
         """The JAX package's parameter pytree of this model, in its order
         (``embed``, ``blocks``, ``final_norm``, ``lm_head``), for the design
         flow's path-keyed view (``sparsity/masks.py::flatten_params``).
@@ -85,7 +85,11 @@ class LM(nn.Module):
         no weight; the design flow reads only the shape of a 3-D leaf.  A
         stacked vector (biases, norm scales: L x d, a few hundred KB) is
         a real copy, since it is 2-D there and may be pruned like any
-        2-D weight.  The other leaves are this module's own parameters."""
+        2-D weight.  The other leaves are this module's own parameters.
+
+        With ``per_block`` each stacked leaf is instead the list of the
+        blocks' own parameters, in layer order: the tree that training
+        differentiates and updates (``optim/optimizers.py``)."""
         stacked: dict = {}
         names = [name for name, _ in self.blocks[0].named_parameters()]
         for name in names:
@@ -95,10 +99,13 @@ class LM(nn.Module):
                 node = node.setdefault(part, {})
             layers = [blk.get_parameter(name) for blk in self.blocks]
             t = layers[0]
-            node[leaf] = (torch.stack([p.detach() for p in layers])
-                          if t.ndim == 1 else
-                          torch.empty((len(layers), *t.shape),
-                                      dtype=t.dtype, device="meta"))
+            if per_block:
+                node[leaf] = layers
+            elif t.ndim == 1:
+                node[leaf] = torch.stack([p.detach() for p in layers])
+            else:
+                node[leaf] = torch.empty((len(layers), *t.shape),
+                                         dtype=t.dtype, device="meta")
         tree = {"embed": self.embed, "blocks": _sorted_tree(stacked),
                 "final_norm": dict(self.final_norm.named_parameters())}
         if hasattr(self, "lm_head"):

@@ -98,10 +98,18 @@ class Replica:
     hung: bool = False                  # host loop wedged, state intact
     fenced: bool = False                # salvaged; never stepped again
     cause: str = "heartbeat_loss"       # site that took it down
+    # runs a rejoin replaced: their finished and dead-lettered requests
+    # stay terminal and still count
+    retired: list[EngineRun] = dataclasses.field(default_factory=list)
 
     @property
     def live(self) -> bool:
         return self.state in _LIVE
+
+    @property
+    def runs(self) -> list[EngineRun]:
+        """Every run this replica has had, the current one last."""
+        return [*self.retired, self.run]
 
 
 class FrontDoor:
@@ -507,6 +515,7 @@ class ServingCluster:
             raise ValueError(f"replica {name!r} is already live")
         if rep.run.journal is not None:
             rep.run.journal.close()
+        rep.retired.append(rep.run)
         rep.run = self._fresh_run(rep.name)
         self._set_state(rep, HEALTHY)
         rep.missed = 0
@@ -555,10 +564,12 @@ class ServingCluster:
     @property
     def finished(self) -> list[Request]:
         """Completed requests across all replicas (including fenced ones
-        — completion before death still counts)."""
+        and runs a rejoin replaced — completion before death still
+        counts)."""
         out: list[Request] = []
         for rep in self.replicas:
-            out.extend(rep.run.sched.finished)
+            for run in rep.runs:
+                out.extend(run.sched.finished)
         return out
 
     @property
@@ -566,7 +577,8 @@ class ServingCluster:
         """Dead letters across replicas plus cluster-level ReplicaLost."""
         out: list[Request] = []
         for rep in self.replicas:
-            out.extend(rep.run.rec.dead)
+            for run in rep.runs:
+                out.extend(run.rec.dead)
         out.extend(self.dead)
         return out
 
@@ -583,7 +595,8 @@ class ServingCluster:
                                      "missed": r.missed,
                                      "fenced": r.fenced,
                                      "n_finished":
-                                         len(r.run.sched.finished),
+                                         sum(len(run.sched.finished)
+                                             for run in r.runs),
                                      "n_segments": r.run.n_segments}
                             for r in self.replicas},
                "front_door": self.front_door.stats(),

@@ -82,6 +82,17 @@ def block_map(mask: torch.Tensor, block: int = BLOCK) -> np.ndarray:
     return occ.cpu().numpy().astype(np.int32)
 
 
+def polynomial_schedule(step: int, begin: int, end: int,
+                        final_rate: float, power: float = 3.0) -> float:
+    """Keras-style polynomial-decay sparsity ramp (0 → final_rate)."""
+    if step <= begin:
+        return 0.0
+    if step >= end:
+        return final_rate
+    frac = (step - begin) / max(1, end - begin)
+    return final_rate * (1.0 - (1.0 - frac) ** power)
+
+
 def prunable_paths(params, min_size: int = 1024,
                    exempt: tuple[str, ...] = ("embed", "router", "norm",
                                               "bias", "scale", "gate_logit",
@@ -114,11 +125,16 @@ def _masked(w: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     return (w.float() * m.to(w.device)).to(w.dtype)
 
 
-def apply_masks(params, masks: dict[str, torch.Tensor]):
+def apply_masks(params, masks: dict[str, torch.Tensor], *,
+                keep_graph: bool = False):
     """Multiply masked weights into new parameters.  Nested dicts give a
-    new nested dict; an LM module gives a shallow copy that shares every
-    parameter except the masked ones (a stacked ``blocks/...`` mask
-    (L, ...) masks layer i with its slice i)."""
+    new nested dict (autograd goes through it).  An LM module gives a
+    shallow copy that shares every parameter except the masked ones (a
+    stacked ``blocks/...`` mask (L, ...) masks layer i with its slice i):
+    by default each masked weight is a new frozen ``Parameter``, cut from
+    the graph (evaluation); with ``keep_graph`` it is the masked tensor
+    itself, so a loss on the copy reaches the original parameters'
+    gradients (the LM fine-tune, ``tasks/train_utils.py``)."""
     if not isinstance(params, torch.nn.Module):
         flat = flatten_params(params)
         for p, m in masks.items():
@@ -129,10 +145,25 @@ def apply_masks(params, masks: dict[str, torch.Tensor]):
         parts = path.split("/")
         if parts[0] == "blocks":
             for i in range(len(params.blocks)):
-                _replace(out, ["blocks", str(i), *parts[1:]], m[i])
+                _replace(out, ["blocks", str(i), *parts[1:]], m[i],
+                         keep_graph)
         else:
-            _replace(out, parts, m)
+            _replace(out, parts, m, keep_graph)
     return out
+
+
+@torch.no_grad()
+def mask_module_(module: torch.nn.Module,
+                 masks: dict[str, torch.Tensor]) -> None:
+    """:func:`apply_masks` in place on an LM module's own parameters."""
+    for path, m in masks.items():
+        parts = path.split("/")
+        targets = ([(["blocks", str(i), *parts[1:]], m[i])
+                    for i in range(len(module.blocks))]
+                   if parts[0] == "blocks" else [(parts, m)])
+        for names, mi in targets:
+            w = module.get_parameter(".".join(names))
+            w.copy_(_masked(w, mi))
 
 
 def _shallow(module: torch.nn.Module) -> torch.nn.Module:
@@ -143,14 +174,15 @@ def _shallow(module: torch.nn.Module) -> torch.nn.Module:
 
 
 def _replace(module: torch.nn.Module, parts: list[str],
-             mask: torch.Tensor) -> None:
+             mask: torch.Tensor, keep_graph: bool) -> None:
     for part in parts[:-1]:
         child = _shallow(module._modules[part])
         module._modules[part] = child
         module = child
-    w = module._parameters[parts[-1]]
-    module._parameters[parts[-1]] = torch.nn.Parameter(_masked(w, mask),
-                                                       requires_grad=False)
+    w = _masked(module._parameters[parts[-1]], mask)
+    # a plain tensor in _parameters is what attribute access returns
+    module._parameters[parts[-1]] = (
+        w if keep_graph else torch.nn.Parameter(w, requires_grad=False))
 
 
 def sparsity_report(masks: dict[str, torch.Tensor]) -> dict[str, float]:
@@ -189,3 +221,13 @@ def unflatten_params(flat: dict[str, torch.Tensor]):
             node = node.setdefault(p, {})
         node[parts[-1]] = leaf
     return root
+
+
+def effective_macs_fraction(masks: dict[str, torch.Tensor], params) -> float:
+    """Fraction of matmul MACs surviving pruning — the DSP-usage analogue."""
+    flat = flatten_params(params)
+    total = sum(int(flat[p].numel()) for p in masks)
+    if total == 0:
+        return 1.0
+    alive = sum(int(torch.count_nonzero(m)) for m in masks.values())
+    return alive / total

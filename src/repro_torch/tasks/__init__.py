@@ -1,2 +1,2 @@
 """Pipe tasks of the design flow (the JAX package's ``tasks``): MODEL-GEN
-and the TUNE O-task so far."""
+and the PRUNING, SCALING, QUANTIZATION, TUNE and SERVE O-tasks."""

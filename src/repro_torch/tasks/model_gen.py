@@ -1,11 +1,13 @@
 """MODEL-GEN λ-task (paper Table I: KERAS-MODEL-GEN, multiplicity 0-to-1).
 
-Builds a model (bench CNN/MLP or LM arch) and places the DNN-level
-artifact into the model space with baseline accuracy + resource metrics,
-as the JAX package's ``tasks/model_gen.py`` does.  Parameters are drawn
-from a ``torch.Generator`` seeded with ``seed`` on the task's ``device``
-(CUDA unless the caller passes ``device="cpu"``).  Training
-(``train_en=True``) waits for the port's training slice and raises.
+Builds a model (bench CNN/MLP or LM arch), optionally trains it on the
+configured dataset, and places the DNN-level artifact into the model
+space with baseline accuracy + resource metrics, as the JAX package's
+``tasks/model_gen.py`` does.  Parameters are drawn from a
+``torch.Generator`` seeded with ``seed`` on the task's ``device`` (CUDA
+unless the caller passes ``device="cpu"``).  With ``train_en`` a bench
+model trains with ``train_classifier`` and an LM arch fine-tunes with
+``lm_finetune`` on the JAX package's synthetic token batches.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from repro_torch.models.cnn import BENCH_MODELS
 from repro_torch.models.common import resolve_device
 from repro_torch.quant.policy import FP32, PrecisionPolicy
 from repro_torch.tasks.handle import DNNHandle
+from repro_torch.tasks.train_utils import lm_finetune, train_classifier
 
 BENCH_DATASETS = {"jet_dnn": "jet", "vgg7": "mnist_like",
                   "resnet9": "svhn_like"}
@@ -42,12 +45,6 @@ class ModelGen(LambdaTask):
     }
 
     def execute(self, meta: MetaModel, inputs):
-        if self.param(meta, "train_en"):
-            raise NotImplementedError(
-                "ModelGen(train_en=True): training (train_classifier, "
-                "lm_finetune) is not ported yet — ROADMAP Queue 1, item 5 "
-                "(training, checkpoint and distribution); pass "
-                "train_en=False")
         name = self.param(meta, "model")
         seed = self.param(meta, "seed")
         device = resolve_device(self.param(meta, "device"))
@@ -71,11 +68,22 @@ class ModelGen(LambdaTask):
         n = self.param(meta, "train_samples")
         x, y = ds_fn(n, seed=self.param(meta, "seed"))
         (xtr, ytr), (xte, yte) = synthetic.train_test_split(x, y)
-        return DNNHandle(
+        handle = DNNHandle(
             kind="bench", name=name, params=params, apply_fn=apply_fn,
             meta=dict(info), scale=scale,
             policy=PrecisionPolicy(default=FP32, exempt=DEFAULT_EXEMPT),
             train_data=(xtr, ytr), test_data=(xte, yte))
+        if self.param(meta, "train_en"):
+            params, losses = train_classifier(
+                params, apply_fn, (xtr, ytr),
+                epochs=self.param(meta, "train_epochs"),
+                batch=self.param(meta, "batch"),
+                lr=self.param(meta, "lr"),
+                seed=self.param(meta, "seed"))
+            handle = handle.child(params=params)
+            meta.record("model_gen.train", model=name,
+                        final_loss=losses[-1] if losses else None)
+        return handle
 
     def _build_lm(self, meta, arch, device) -> DNNHandle:
         from repro_torch.configs.registry import get_config
@@ -87,6 +95,16 @@ class ModelGen(LambdaTask):
                                    seed=self.param(meta, "seed"))
         data = {"tokens": toks[:-1].reshape(8, 128),
                 "labels": toks[1:].reshape(8, 128)}
-        return DNNHandle(kind="lm", name=arch, params=params, model=model,
-                         policy=model.policy, test_data=data,
-                         train_data=data)
+        handle = DNNHandle(kind="lm", name=arch, params=params, model=model,
+                           policy=model.policy, test_data=data,
+                           train_data=data)
+        if self.param(meta, "train_en"):
+            def batches(s):
+                t = synthetic.lm_tokens(4 * 64 + 1, cfg.vocab_size, seed=s)
+                return {"tokens": t[:-1].reshape(4, 64),
+                        "labels": t[1:].reshape(4, 64)}
+
+            params, _ = lm_finetune(model, params, batches,
+                                    steps=self.param(meta, "train_epochs"))
+            handle = handle.child(params=params)
+        return handle

@@ -192,6 +192,38 @@ def test_rejoined_replica_serves_a_second_wave(engines):
     _assert_pools_drained(cl)
 
 
+@pytest.mark.parametrize("take_down", ["kill", "drain"])
+def test_rejoin_keeps_the_replaced_runs_terminal_requests(engines,
+                                                          take_down):
+    """A replica that finished requests, was taken down and then rejoined
+    still counts them: every request ends in exactly one terminal state.
+    The JAX cluster's rejoin drops the replaced run's finished list, so
+    this case is held to one engine's tokens, not to the JAX cluster."""
+    sv, eng, params = engines["torch"]
+    cl = sv.ServingCluster(eng, params, n_replicas=3)
+
+    def hook(c, rnd):
+        if rnd == 1:
+            getattr(c, take_down)("r1")
+        elif not c._replica("r1").live and not c._replica("r1").retired:
+            c.rejoin("r1")              # as soon as it is out
+
+    reqs = _mk_reqs(sv, engines["vocab"], n=5, gen=2)
+    reqs[-1].max_new_tokens = 12        # keeps the run going past it
+    out = cl.run(reqs, on_round=hook)
+    r1 = cl._replica("r1")
+    assert r1.live and len(r1.retired) == 1
+    assert r1.retired[0].sched.finished      # the case under test
+    rids = [r.rid for r in cl.finished]
+    assert sorted(rids) == [r.rid for r in reqs] and not cl.dead_lettered
+    assert out["n_finished"] == len(reqs) and out["n_dead_lettered"] == 0
+    assert out["replicas"]["r1"]["n_finished"] \
+        == len(r1.retired[0].sched.finished)
+    for r in reqs:
+        assert list(r.tokens) == engines["base"][r.rid][:r.max_new_tokens]
+    _assert_pools_drained(cl)
+
+
 def test_prefix_affinity_routes_to_warm_replica(engines):
     got = {}
     for side in ("jax", "torch"):

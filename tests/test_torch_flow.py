@@ -475,10 +475,14 @@ def test_combined_strategy_and_untrained_model_gen():
         "device": "cpu", "max_problems": 0}},
         model_params={"device": "cpu"}), {"ModelGen.train_en": False})
     assert meta.get("tune.result") == {"configs": {}, "search_steps": 0}
-    with pytest.raises(NotImplementedError, match="training"):
-        ModelGen(model="jet_dnn", device="cpu").run(MetaModel(), [])
-    with pytest.raises(NotImplementedError):
-        combined_strategy("jet_dnn", "SPQ")
+    assert meta.trace("model_gen.train") == []
+    # MODEL-GEN trains by default; SHARDING-SEARCH is not ported
+    trained = MetaModel({"ModelGen.train_samples": 256,
+                         "ModelGen.train_epochs": 1})
+    ModelGen(model="jet_dnn", device="cpu").run(trained, [])
+    assert len(trained.trace("model_gen.train")) == 1
+    with pytest.raises(NotImplementedError, match="SHARDING-SEARCH"):
+        combined_strategy("jet_dnn", "SPH")
 
 
 # ---------------------------------------------------- bench models / handle

@@ -36,8 +36,9 @@ def test_every_module_imports_without_jax():
     assert r.returncode == 0, r.stderr
     # configs, models, serving, ... and the design flow: core, sparsity,
     # tasks, models.cnn, kernels.{autotune,ops,ref} and the two kernels;
-    # then serving.{cluster,journal,traffic} and tasks.serve
-    assert int(r.stdout.strip()) >= 65
+    # then serving.{cluster,journal,traffic} and tasks.serve; then optim,
+    # optim.optimizers and tasks.{train_utils,pruning,scaling,quantization}
+    assert int(r.stdout.strip()) >= 71
 
 
 @pytest.mark.parametrize("needle", [
@@ -62,6 +63,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         build_model(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         init_paged_cache(cfg, pcfg)
+    from repro_torch.core.metamodel import MetaModel
+    from repro_torch.core.strategies import pruning_strategy
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pruning_strategy("jet_dnn").execute(MetaModel())
     model = build_model(cfg, device="cpu")
     assert model.device.type == "cpu"
     cache = init_paged_cache(cfg, pcfg, device="cpu")
