@@ -55,7 +55,11 @@ Phases, each printing one JSON line or more:
                burst's shared-prefix dispatch), and at the phase-8 shapes
                for block_sparse_matmul and flash_attention (also bf16 at
                (1, 512) and (1, 4096)); quant_matmul also at the down
-               projection (M = 8) and TUNE's two problems (M = 128); the
+               projection (M = 8) and TUNE's two problems (M = 128);
+               sub-rows at phase 12's shapes: the paged pair and
+               flash_decode at granite's H = 16 over KV = 8, D = 64,
+               quant_matmul at DeepSeek-V2's shared experts (M = 4 and
+               1,024); the
                rows name the variant and tiles (decode: chunk and
                chunks; quant_matmul: splits) that ran, and the decode
                rows split their device time by kernel (torch.profiler);
@@ -110,6 +114,27 @@ Phases, each printing one JSON line or more:
                ``train_classifier`` (jet_dnn, INT8) and ``lm_finetune``
                (qwen2-smoke, masked) for 3 steps on the CPU and on the
                card from one init, within stated tolerances.  Runs before
+               phase 6, whose rows report its launch counts;
+12. families — the MoE family (MLA attention and the MoE FFN, plain
+               PyTorch products as in the JAX package; fp32 products
+               without TF32): (a) granite-moe-1b-a400m at full width and
+               depth (24 layers, 32 experts top-8, fp32 weights from seed
+               0, bf16 activations and cache) behind the paged engine on
+               the phase-5 burst — launch counts, every paged launch on
+               "tc" at D = 64, one MoE host read a layer a forward, two
+               requests served again alone bit-identical — then
+               contiguous ``generate`` (batch 8, 512-token prompts, 64 new,
+               every flash_decode launch on "tc") and a torch.profiler
+               breakdown of 16 of its decode steps; (b) DeepSeek-V2 at full
+               width (MLA, 160 routed experts top-6, 2 shared) cut to 2 of
+               60 layers, bf16, ``generate`` (batch 4, 256-token prompts,
+               32 new) under the bf16 policy (no kernel runs) and the
+               int8-mlp policy (quant_matmul for each shared-expert
+               product, all on "tc"), and a profile of 16 decode steps
+               under each; (c) the CPU against the card from
+               one set of fp32 weights: granite on 2 layers through the
+               paged engine and ``generate``, DeepSeek-V2 on 1 layer
+               through ``generate`` under both policies.  Runs before
                phase 6, whose rows report its launch counts.
 
 Then one ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line, and the
@@ -124,10 +149,10 @@ busy share, the admission dispatches' share of device time, the top
 kernels and host ops — and over 16 contiguous decode steps under each
 policy) runs only when asked.
 
-Usage: ``python3 chip_smoke.py [--phases 1,2,3,4,5,6,8,9,10,11[,7]]
+Usage: ``python3 chip_smoke.py [--phases 1,2,3,4,5,6,8,9,10,11,12[,7]]
 [--src DIR]``; ``--phases 1,2,9,10`` builds the kernels and drives the
 SERVE and durability paths alone, ``--phases 1,2,3,11`` the design flow
-with training.
+with training, ``--phases 1,2,12`` the MoE family.
 ``--src`` drives the ``repro_torch`` under another tree (e.g. the parent
 commit unpacked beside this one) with this script's phases; with
 ``--phases 1,6`` that times both commits' kernels with the same rows in one
@@ -155,6 +180,10 @@ FP32_TOL = 2e-5                     # as tests/test_paged.py
 MM_FP32_REL = 1e-5                  # fp32 products: of the largest output
 KERNELS = ("flash_decode_paged", "flash_prefill_ragged", "flash_decode",
            "quant_matmul", "block_sparse_matmul", "flash_attention")
+# attention shapes (H, KV, D): Qwen2-7B's (phases 5 and 8) and
+# granite-moe-1b-a400m's (phase 12)
+QWEN_ATTN = (28, 4, 128)
+GRANITE_ATTN = (16, 8, 64)
 
 
 def emit(obj: dict) -> None:
@@ -377,13 +406,17 @@ def _contig_masks(cache_len: int) -> list:
 # Qwen2-7B's MLP at decode (M = 8) and prefill (M = 4096), TUNE's embed
 # product at M = 128, K no multiple of 16 (the mma.sync kernel), then the
 # tensor-core kernel's ragged edges: M, N and the last k-block ragged,
-# swapped (M <= 64) and not, with and without a split
+# swapped (M <= 64) and not, with and without a split; then granite's
+# tied lm_head under int8 (N = 49,155, odd) and DeepSeek-V2's shared
+# experts at decode (M = 4) and prefill (M = 1,024)
 QMM_SHAPES = ((8, 3584, 18944), (8, 18944, 3584), (4096, 3584, 18944),
               (4096, 18944, 3584), (3, 56, 40), (5, 100, 17),
               (130, 72, 200), (128, 152064, 3584), (3, 80, 40),
               (17, 2064, 1000), (64, 1024, 200), (65, 272, 136),
               (70, 4112, 300), (200, 512, 520), (512, 16, 64), (512, 32, 5),
-              (512, 512, 10))
+              (512, 512, 10), (8, 1024, 49155), (512, 1024, 49155),
+              (4, 5120, 3072), (1024, 5120, 3072), (4, 3072, 5120),
+              (1024, 3072, 5120))
 # the INT8 straight-through product (models/common.py::Int8MatmulSTE) at
 # the bench models' evaluation shapes and a Qwen2-7B training forward
 STE_SHAPES = ((512, 16, 64), (512, 32, 5), (512, 512, 10),
@@ -971,27 +1004,33 @@ def phase_kernels() -> dict:
                              fpr.flash_prefill_ragged_plain(*args), dtype,
                              worst, (h, kvh, ps, bq))
                 n_cases += 3
-        # full width: R = 8, H = 28, KV = 4, D = 128, ps = 16, M = 37
-        r, h, kvh, d, ps, m = 8, 28, 4, 128, 16, 37
-        cap = m * ps
-        args = _decode_inputs(gen, r, h, kvh, d, ps, m,
-                              [0, 1, 17, 255, 300, 511, 576, cap - 1],
-                              dtype)
-        _compare("flash_decode_paged", fdp.flash_decode_paged(*args),
-                 fdp.flash_decode_paged_plain(*args), dtype, worst, "full")
-        s = 77                                         # 3 tiles, last ragged
-        args = _prefill_inputs(
-            gen, r, s, h, kvh, d, ps, m,
-            [0, 16, 256, 256, 100, 0, 500, 3], [77, 77, 40, 0, 77, 1, 77, 9],
-            dtype)
-        _compare("flash_prefill_ragged", fpr.flash_prefill_ragged(*args),
-                 fpr.flash_prefill_ragged_plain(*args), dtype, worst, "full")
-        n_cases += 2
+        # full width: R = 8, ps = 16, M = 37, at Qwen2-7B's H = 28, KV = 4,
+        # D = 128 and granite-moe-1b-a400m's H = 16, KV = 8, D = 64
+        for h, kvh, d in (QWEN_ATTN, GRANITE_ATTN):
+            r, ps, m = 8, 16, 37
+            cap = m * ps
+            args = _decode_inputs(gen, r, h, kvh, d, ps, m,
+                                  [0, 1, 17, 255, 300, 511, 576, cap - 1],
+                                  dtype)
+            _compare("flash_decode_paged", fdp.flash_decode_paged(*args),
+                     fdp.flash_decode_paged_plain(*args), dtype, worst,
+                     ("full", h, kvh, d))
+            s = 77                                     # 3 tiles, last ragged
+            args = _prefill_inputs(
+                gen, r, s, h, kvh, d, ps, m,
+                [0, 16, 256, 256, 100, 0, 500, 3],
+                [77, 77, 40, 0, 77, 1, 77, 9], dtype)
+            _compare("flash_prefill_ragged",
+                     fpr.flash_prefill_ragged(*args),
+                     fpr.flash_prefill_ragged_plain(*args), dtype, worst,
+                     ("full", h, kvh, d))
+            n_cases += 2
         # contiguous decode: g in {1, 2, 7} at D = 8 over cache lengths a
         # tile divides, none divides and 577 = 512 + 64 + 1, then the
         # full-width serving shape; linear and wrapped-ring masks
         shapes = [(3, h, kvh, 8, n) for h, kvh in ((4, 4), (4, 2), (7, 1))
-                  for n in (16, 37, 577)] + [(8, 28, 4, 128, 577)]
+                  for n in (16, 37, 577)] + [(8, *QWEN_ATTN, 577),
+                                             (8, *GRANITE_ATTN, 577)]
         for b, h, kvh, d, n in shapes:
             q, k, v = _contig_inputs(gen, b, n, h, kvh, d, dtype)
             for case, mask in _contig_masks(n):
@@ -1069,6 +1108,24 @@ def phase_cpu_vs_gpu() -> None:
     lm_gpu = m_gpu.empty_params()
     lm_gpu.load_state_dict(lm_cpu.state_dict())
     t_init = time.perf_counter() - t0
+    out = _paged_cpu_vs_gpu(cfg, (m_cpu, lm_cpu), (m_gpu, lm_gpu))
+    emit({"phase": "cpu_vs_gpu", "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "equal_tokens": True, **out,
+          "init_s": round(t_init, 3)})
+    _contiguous_cpu_vs_gpu(cfg, lm_cpu, lm_gpu)
+    del lm_gpu, m_gpu
+    torch.cuda.empty_cache()
+
+
+def _paged_cpu_vs_gpu(cfg, cpu, gpu) -> dict:
+    """The paged engine on the CPU (plain versions) and on the card
+    (kernels), fp32 cache, must emit equal tokens: 4 requests of 48
+    tokens (2 sharing a 32-token prefix), 20 new each, through one
+    preemption and one restore.  ``cpu`` and ``gpu`` are (model, params)
+    with the same weights."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import PagedCacheConfig, PagedServingEngine
     # 48 + 20 + 1 tokens need a 5th page that the admission (48 + 4 + 1)
     # does not back, and 15 allocatable pages cannot grow all four:
     # one preemption and one restore
@@ -1077,7 +1134,7 @@ def phase_cpu_vs_gpu() -> None:
     reqs = _requests(np.random.default_rng(0), 4, 48, 2, 32,
                      cfg.vocab_size, 20)
     tokens, stats, secs = {}, {}, {}
-    for name, model, lm in (("cpu", m_cpu, lm_cpu), ("gpu", m_gpu, lm_gpu)):
+    for name, (model, lm) in (("cpu", cpu), ("gpu", gpu)):
         rs = _copy_requests(reqs)
         t0 = time.perf_counter()
         st = PagedServingEngine(model, pcfg,
@@ -1089,16 +1146,13 @@ def phase_cpu_vs_gpu() -> None:
         if st["n_finished"] != 4 or st["preemptions"] < 1 \
                 or st["restores"] < 1 \
                 or any(len(r.tokens) != 20 for r in rs):
-            raise AssertionError(f"phase 4 {name}: {stats[name]}")
+            raise AssertionError(f"{cfg.name} paged {name}: "
+                                 f"{stats[name]}")
     if tokens["cpu"] != tokens["gpu"]:
-        raise AssertionError(f"CPU and GPU tokens differ: {tokens}")
-    emit({"phase": "cpu_vs_gpu", "layers": cfg.n_layers,
-          "d_model": cfg.d_model, "equal_tokens": True,
-          "tokens_per_request": [len(t) for t in tokens["gpu"].values()],
-          "stats": stats, "init_s": round(t_init, 3), "run_s": secs})
-    _contiguous_cpu_vs_gpu(cfg, lm_cpu, lm_gpu)
-    del lm_gpu, m_gpu
-    torch.cuda.empty_cache()
+        raise AssertionError(f"{cfg.name}: CPU and GPU tokens differ: "
+                             f"{tokens}")
+    return {"tokens_per_request": [len(t) for t in tokens["gpu"].values()],
+            "stats": stats, "run_s": secs}
 
 
 # Under the bf16 and int8 policies a logit moves by ~0.01 between two fp32
@@ -1164,16 +1218,18 @@ SERVE = dict(n=16, prompt_len=512, n_shared=8, prefix_len=256, max_new=64,
              page_size=16, max_slots=8, max_blocks=37, segment_len=8)
 
 
-def _serve_engine():
-    """Qwen2-7B at full width and depth in bf16 (random weights from seed
-    0) behind the phase-5 engine, warmed up on one short request."""
+def _serve_engine(arch: str = "qwen2_7b"):
+    """``arch`` (Qwen2-7B by default) at full width and depth with bf16
+    activations (random weights from seed 0, in the config's parameter
+    dtype) behind the phase-5 engine (bf16 cache), warmed up on one short
+    request."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.models.api import build_model
     from repro_torch.serving import (PagedCacheConfig, PagedServingEngine,
                                      warmup)
     c = SERVE
-    cfg = get_config("qwen2_7b")
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     model = build_model(cfg)                          # bf16 policy, cuda
     lm = model.init(seed=0)
@@ -1190,14 +1246,31 @@ def _serve_engine():
 
 
 def phase_serve() -> dict:
+    import torch
+    cfg, _, lm, eng, counts, _ = _burst("qwen2_7b", "serve")
+    del eng
+    torch.cuda.empty_cache()
+    launches = {k: counts[k] for k in ("flash_decode_paged",
+                                       "flash_prefill_ragged")}
+    launches.update(phase_generate(cfg, lm))
+    return launches
+
+
+def _burst(arch: str, phase: str):
+    """The phase-5 burst on ``arch`` at full width and depth (bf16): 16
+    requests, launch counts equal to layers × dispatches and layers ×
+    decode steps, every paged attention launch on its tensor-core variant.
+    Returns (cfg, pcfg, params, engine, counts, requests)."""
     import numpy as np
     import torch
+    from repro_torch.models import layers as L
     c = SERVE
-    cfg, pcfg, lm, eng, t_init = _serve_engine()
+    cfg, pcfg, lm, eng, t_init = _serve_engine(arch)
     reqs = _requests(np.random.default_rng(1), c["n"], c["prompt_len"],
                      c["n_shared"], c["prefix_len"], cfg.vocab_size,
                      c["max_new"])
     torch.cuda.reset_peak_memory_stats()
+    syncs0 = L.moe_host_syncs
     # the main path: counts set to 0 just before, read just after
     _zero_counts()
     t0 = time.perf_counter()
@@ -1206,6 +1279,7 @@ def phase_serve() -> dict:
     wall = time.perf_counter() - t0
     counts = _read_counts()
     tc_counts = _read_tc_counts()
+    syncs = L.moe_host_syncs - syncs0
     expected = {
         "flash_decode_paged": cfg.n_layers * st["n_segments"]
         * pcfg.segment_len,
@@ -1218,22 +1292,30 @@ def phase_serve() -> dict:
            or not all(0 <= t < cfg.vocab_size for t in r.tokens)]
     if bad or st["n_dead_lettered"] or st["n_finished"] != c["n"]:
         raise AssertionError(
-            f"phase 5: bad requests {bad}, finished {st['n_finished']}, "
-            f"dead-lettered {st['n_dead_lettered']}")
+            f"{arch} burst: bad requests {bad}, finished "
+            f"{st['n_finished']}, dead-lettered {st['n_dead_lettered']}")
     if counts != expected or min(expected["flash_decode_paged"],
                                  expected["flash_prefill_ragged"]) < 1:
-        raise AssertionError(f"launch counts {counts} != {expected}")
-    # bf16 activations and cache at D = 128: every admission dispatch's
-    # and every decode step's attention goes to the tensor-core variant
+        raise AssertionError(f"{arch} launch counts {counts} != {expected}")
+    # one MoE host read a layer a forward: a dispatch or a decode step
+    want_syncs = (counts["flash_decode_paged"]
+                  + counts["flash_prefill_ragged"]) if cfg.is_moe else 0
+    if syncs != want_syncs:
+        raise AssertionError(f"{arch}: {syncs} MoE host reads, expected "
+                             f"{want_syncs}")
+    # bf16 activations and cache at D = 64 or 128: every admission
+    # dispatch's and every decode step's attention goes to the tensor-core
+    # variant
     want_tc = {"flash_decode_paged": counts["flash_decode_paged"],
                "flash_prefill_ragged": counts["flash_prefill_ragged"],
                "flash_decode": 0, "quant_matmul": 0,
                "block_sparse_matmul": 0, "flash_attention": 0}
     if tc_counts != want_tc:
-        raise AssertionError(f"tensor-core launches {tc_counts}, expected "
-                             f"{want_tc}")
-    emit({"phase": "serve", "arch": cfg.name, "layers": cfg.n_layers,
-          "dtype": "bfloat16", **c, "init_s": round(t_init, 3),
+        raise AssertionError(f"{arch} tensor-core launches {tc_counts}, "
+                             f"expected {want_tc}")
+    emit({"phase": phase, "arch": cfg.name, "layers": cfg.n_layers,
+          "dtype": "bfloat16", "param_dtype": cfg.param_dtype, **c,
+          "init_s": round(t_init, 3),
           "wall_s": wall, "prefill_s": st["prefill_s"],
           "decode_s": st["decode_s"], "tokens": n_tokens,
           "tokens_per_s": n_tokens / wall,
@@ -1242,82 +1324,112 @@ def phase_serve() -> dict:
           "prefix_hits": st["prefix_hits"],
           "preemptions": st["preemptions"],
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "moe_host_syncs": syncs,
           "launches": counts, "launches_tc": tc_counts,
           "expected_launches": expected})
-    del eng
-    torch.cuda.empty_cache()
-    launches = {k: counts[k] for k in ("flash_decode_paged",
-                                       "flash_prefill_ragged")}
-    launches.update(phase_generate(cfg, lm))
-    return launches
+    return cfg, pcfg, lm, eng, counts, reqs
 
 
 GENERATE = dict(batch=8, prompt_len=512, gen=64)
 
 
-def phase_generate(cfg, lm) -> dict:
-    """Contiguous ``generate`` at full width and depth in bf16 (batch 8,
-    512-token prompts, 64 new tokens) once under the bf16 policy and once
-    under the int8-mlp policy, on the phase-5 parameters (the policy lives
-    on the model, not on the parameters).  Each run is a main path: counts
-    set to 0 just before it, read just after.  Returns the launches of
-    flash_decode (bf16 run) and quant_matmul (int8-mlp run)."""
+def _mlp_linears(cfg) -> int:
+    """``linear`` calls named ``mlp/…`` in one forward: the dense MLP's, or
+    the MoE layers' shared experts (the routed experts call none)."""
+    if cfg.is_moe:
+        return 3 * cfg.n_layers if cfg.n_shared_experts else 0
+    return (3 if cfg.mlp == "glu" else 2) * cfg.n_layers
+
+
+def phase_generate(cfg, lm, c=GENERATE, policies=("bf16", "int8-mlp"),
+                   phase="generate") -> dict:
+    """Contiguous ``generate`` at full width in bf16 (by default batch 8,
+    512-token prompts, 64 new tokens) under each of ``policies`` (bf16,
+    int8-mlp), on the one parameter set (the policy lives on the model,
+    not on the parameters).  Each run is a main path: counts set to 0
+    just before it, read just after.  flash_decode launches a GQA layer
+    a decode step (none under MLA, whose decode attention is plain
+    PyTorch), quant_matmul each ``mlp/…`` product under int8-mlp.
+    Returns the launches of flash_decode (bf16 run) and quant_matmul
+    (int8-mlp run)."""
     import numpy as np
     import torch
     from repro_torch.data.synthetic import lm_tokens
     from repro_torch.launch.serve import (generate, make_serve_fns,
                                           serve_policy, timed_generate)
+    from repro_torch.models import layers as L
     from repro_torch.models.api import build_model
-    c = GENERATE
     b, s, n_gen = c["batch"], c["prompt_len"], c["gen"]
     prompts = torch.from_numpy(lm_tokens(b * s, cfg.vocab_size, seed=1)
                                .reshape(b, s).astype(np.int32))
     cache_len = s + n_gen + 1
-    n_mlp = 3 if cfg.mlp == "glu" else 2
+    n_attn = 0 if cfg.use_mla else cfg.n_layers
     launches = {}
-    for pname, int8 in (("bf16", False), ("int8-mlp", True)):
+    for pname in policies:
+        int8 = pname == "int8-mlp"
         model = build_model(cfg, serve_policy(int8))
         fns = make_serve_fns(model)
         generate(model, lm, prompts[:, :64], 4, 69, fns=fns)   # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        syncs0 = L.moe_host_syncs
         _zero_counts()
         toks, t = timed_generate(model, lm, prompts, n_gen, cache_len,
                                  fns=fns)
         counts = _read_counts()
         tc_counts = _read_tc_counts()
+        syncs = L.moe_host_syncs - syncs0
         expected = {"flash_decode_paged": 0, "flash_prefill_ragged": 0,
-                    "flash_decode": cfg.n_layers * (n_gen - 1),
-                    "quant_matmul": n_mlp * cfg.n_layers * n_gen if int8
+                    "flash_decode": n_attn * (n_gen - 1),
+                    "quant_matmul": _mlp_linears(cfg) * n_gen if int8
                     else 0, "block_sparse_matmul": 0, "flash_attention": 0}
         if counts != expected:
-            raise AssertionError(f"generate {pname}: launch counts {counts} "
-                                 f"!= {expected}")
-        # bf16 q and cache at D = 128: every decode step's attention on
-        # the tensor-core variant
+            raise AssertionError(f"generate {cfg.name} {pname}: launch "
+                                 f"counts {counts} != {expected}")
+        if syncs != (cfg.n_layers * n_gen if cfg.is_moe else 0):
+            raise AssertionError(f"generate {cfg.name} {pname}: {syncs} "
+                                 f"MoE host reads")
+        # bf16 q and cache at D = 64 or 128: every decode step's attention
+        # on the tensor-core variant
         if not int8 and tc_counts["flash_decode"] != counts["flash_decode"]:
-            raise AssertionError(f"generate {pname}: tensor-core launches "
-                                 f"{tc_counts}, expected all "
+            raise AssertionError(f"generate {cfg.name} {pname}: tensor-core "
+                                 f"launches {tc_counts}, expected all "
                                  f"{counts['flash_decode']} flash_decode")
-        # K = 3,584 and 18,944: every int8 product on the tensor-core
-        # variant (prefill M = 4,096, decode M = 8 swapped)
+        # K a multiple of 16 (Qwen2-7B 3,584 and 18,944; DeepSeek-V2's
+        # shared experts 5,120 and 3,072): every int8 product on the
+        # tensor-core variant (prefill unswapped, decode swapped)
         if int8 and tc_counts["quant_matmul"] != counts["quant_matmul"]:
-            raise AssertionError(f"generate {pname}: tensor-core launches "
-                                 f"{tc_counts}, expected all "
+            raise AssertionError(f"generate {cfg.name} {pname}: tensor-core "
+                                 f"launches {tc_counts}, expected all "
                                  f"{counts['quant_matmul']} quant_matmul")
         host = toks.cpu()
         if host.shape != (b, n_gen) or not bool(
                 ((host >= 0) & (host < cfg.vocab_size)).all()):
-            raise AssertionError(f"generate {pname}: bad tokens "
+            raise AssertionError(f"generate {cfg.name} {pname}: bad tokens "
                                  f"{tuple(host.shape)}")
         decode_tokens = b * (n_gen - 1)
-        emit({"phase": "generate", "arch": cfg.name, "layers": cfg.n_layers,
-              "policy": pname, "dtype": "bfloat16", **c,
+        extra = {}
+        if cfg.use_mla:
+            # the compressed cache against a K/V cache of the same heads
+            per_slot = cfg.n_layers * b * cache_len * 2
+            extra["mla_cache_bytes"] = per_slot * (cfg.kv_lora_rank
+                                                   + cfg.rope_head_dim)
+            extra["full_kv_cache_bytes"] = per_slot * cfg.n_heads * (
+                cfg.nope_head_dim + cfg.rope_head_dim + cfg.v_head_dim)
+        if not any(counts.values()):
+            extra["note"] = ("no kernel of the port runs on this path: MLA "
+                             "attention and the MoE FFN are plain PyTorch "
+                             "products, as they are outside Pallas in the "
+                             "JAX package")
+        emit({"phase": phase, "arch": cfg.name, "layers": cfg.n_layers,
+              "policy": pname, "dtype": "bfloat16",
+              "param_dtype": cfg.param_dtype, **c,
               "prefill_s": t["prefill_s"], "decode_s": t["decode_s"],
               "decode_step_ms": 1e3 * t["decode_s"] / (n_gen - 1),
               "decode_tokens_per_s": decode_tokens / t["decode_s"],
               "prefill_tokens_per_s": b * s / t["prefill_s"],
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "moe_host_syncs": syncs, **extra,
               "launches": counts, "launches_tc": tc_counts,
               "sample": host[0, :8].tolist()})
         if int8:
@@ -1327,6 +1439,187 @@ def phase_generate(cfg, lm) -> dict:
         del fns, model
         torch.cuda.empty_cache()
     return launches
+
+
+# ------------------------------------------------- phase 12: MoE family
+DEEPSEEK_LAYERS = 2                 # of 60: 60 layers are ~476 GB in bf16
+DEEPSEEK_GENERATE = dict(batch=4, prompt_len=256, gen=32)
+ALONE_RIDS = (0, 12)                # a prefix sharer of the first wave and
+                                    # a fresh request of the second
+# CPU against the card: a batch of candidate prompts runs on both sides,
+# and the rows whose every greedy step keeps a top-2 logit gap of at least
+# FAMILIES_GAP on the CPU must give equal tokens (at least two of them):
+# under the bf16 and int8 policies a logit moves by ~0.01 between two
+# fp32 summation orders
+FAMILIES_CANDIDATES = 32
+FAMILIES_GAP = 0.05
+
+
+def phase_families() -> dict:
+    """The MoE family on the card (MLA attention and the MoE FFN):
+    (a) granite-moe-1b-a400m at full width and depth behind the paged
+    engine (the phase-5 burst), two of its requests served again alone
+    (bit-identical tokens), then contiguous ``generate``; (b) DeepSeek-V2
+    at full width on 2 layers through ``generate`` under the bf16 and the
+    int8-mlp policy; (a) and (b) each end in a torch.profiler breakdown of
+    16 decode steps (outside the counted runs); (c) the CPU against the
+    card.  fp32 products stay
+    fp32 (no TF32), as in the plain versions and the reference.  Returns
+    the kernels' launches on these paths."""
+    import torch
+    if torch.get_float32_matmul_precision() != "highest" \
+            or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("phase 12: TF32 is on for fp32 products")
+    launches = _families_granite()
+    launches.update(_families_deepseek())
+    _families_cpu_vs_gpu()
+    return launches
+
+
+def _families_granite() -> dict:
+    """(a): the burst (launch counts, every paged launch on "tc" at D =
+    64, one MoE host read a layer a forward), the row invariance of two
+    requests, and bf16 ``generate`` (every flash_decode launch on
+    "tc")."""
+    import torch
+    from repro_torch.serving import PagedServingEngine
+    cfg, pcfg, lm, eng, counts, reqs = _burst("granite_moe_1b_a400m",
+                                              "families_burst")
+    alone = {}
+    for rid in ALONE_RIDS:
+        req = _copy_requests([reqs[rid]])
+        PagedServingEngine(eng.model, pcfg).run(req, lm)
+        alone[rid] = req[0].tokens == reqs[rid].tokens
+    if not all(alone.values()):
+        raise AssertionError(f"granite: requests served alone differ from "
+                             f"the burst: {alone}")
+    emit({"phase": "families_row_invariance", "arch": cfg.name,
+          "rids": list(ALONE_RIDS), "bit_identical": True})
+    del eng
+    torch.cuda.empty_cache()
+    launches = {k: counts[k] for k in ("flash_decode_paged",
+                                       "flash_prefill_ragged")}
+    launches.update(phase_generate(cfg, lm, policies=("bf16",),
+                                   phase="families_generate"))
+    _profile_generate(cfg, lm, policies=("bf16",),
+                      phase="families_profile_granite")
+    del lm
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _families_deepseek() -> dict:
+    """(b): DeepSeek-V2 at full width (MLA, 160 routed experts top-6, 2
+    shared), cut to :data:`DEEPSEEK_LAYERS` layers, bf16 weights from
+    seed 0 on the card."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.api import build_model
+    cfg = get_config("deepseek_v2_236b").replace(n_layers=DEEPSEEK_LAYERS)
+    t0 = time.perf_counter()
+    lm = build_model(cfg).init(seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in lm.parameters())
+    emit({"phase": "families_init", "arch": cfg.name,
+          "layers": cfg.n_layers, "reduced": "n_layers 60 -> 2",
+          "params": n_params, "init_s": time.perf_counter() - t0})
+    launches = phase_generate(cfg, lm, DEEPSEEK_GENERATE,
+                              phase="families_generate")
+    launches.pop("flash_decode")
+    _profile_generate(cfg, lm, DEEPSEEK_GENERATE,
+                      phase="families_profile_deepseek")
+    del lm
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _families_cpu_vs_gpu() -> None:
+    """(c): the port on the CPU (plain versions) and on the card (kernels)
+    from one set of fp32 weights, drawn on the card and copied to the CPU:
+    granite at full width on 2 layers through the paged engine (FP32
+    policy, a preemption and a restore) and ``generate`` (bf16 policy);
+    DeepSeek-V2 at full width on 1 layer (a ~20 GB host copy) through
+    ``generate`` under the bf16 and the int8-mlp policy."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.quant.policy import PrecisionPolicy
+    for arch, layers, policies in (
+            ("granite_moe_1b_a400m", 2, ("bf16",)),
+            ("deepseek_v2_236b", 1, ("bf16", "int8-mlp"))):
+        cfg = get_config(arch).replace(n_layers=layers,
+                                       param_dtype="float32",
+                                       act_dtype="float32")
+        policy = PrecisionPolicy(default="fp32")
+        t0 = time.perf_counter()
+        m_gpu = build_model(cfg, policy, device="cuda")
+        lm_gpu = m_gpu.init(seed=0)
+        m_cpu = build_model(cfg, policy, device="cpu")
+        lm_cpu = m_cpu.empty_params()
+        lm_cpu.load_state_dict(lm_gpu.state_dict())
+        out = {"init_s": time.perf_counter() - t0}
+        if not cfg.use_mla:
+            out["paged"] = _paged_cpu_vs_gpu(cfg, (m_cpu, lm_cpu),
+                                             (m_gpu, lm_gpu))
+        out["generate"] = {p: _generate_cpu_vs_gpu(cfg, lm_cpu, lm_gpu, p)
+                           for p in policies}
+        emit({"phase": "families_cpu_vs_gpu", "arch": cfg.name,
+              "layers": layers, "dtype": "float32", **out})
+        del lm_gpu, m_gpu, lm_cpu, m_cpu
+        torch.cuda.empty_cache()
+
+
+def _generate_cpu_vs_gpu(cfg, lm_cpu, lm_gpu, pname: str,
+                         prompt_len: int = 32, gen: int = 8) -> dict:
+    """``generate`` (host loop, fp32 cache) of :data:`FAMILIES_CANDIDATES`
+    prompts on both sides under ``pname``; each greedy step's top-2 logit
+    gap is read on the way.  The rows whose every step keeps a gap of
+    :data:`FAMILIES_GAP` on the CPU must agree (at least two rows)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import (ServeFns, generate,
+                                          make_serve_fns, serve_policy)
+    from repro_torch.models.api import build_model
+    prompts = torch.from_numpy(np.random.default_rng(PHASE4_PROMPT_SEED)
+                               .integers(0, cfg.vocab_size,
+                                         (FAMILIES_CANDIDATES, prompt_len))
+                               .astype(np.int32))
+    res, secs = {}, {}
+    for side, lm, dev in (("cpu", lm_cpu, "cpu"), ("gpu", lm_gpu, "cuda")):
+        model = build_model(cfg, serve_policy(pname == "int8-mlp"),
+                            device=dev)
+        gaps = []
+
+        def gapped(fn):
+            def call(*args):
+                logits, cache = fn(*args)
+                top = torch.topk(logits[:, -1].float(), 2, dim=-1).values
+                gaps.append((top[:, 0] - top[:, 1]).cpu())
+                return logits, cache
+            return call
+
+        fns = ServeFns(prefill=gapped(model.prefill),
+                       decode_scan=make_serve_fns(model).decode_scan,
+                       decode_one=gapped(model.decode_step))
+        t0 = time.perf_counter()
+        toks = generate(model, lm, prompts, gen, prompt_len + gen + 1,
+                        scan=False, fns=fns, cache_dtype=torch.float32)
+        secs[side] = time.perf_counter() - t0
+        res[side] = (toks.cpu(), torch.stack(gaps, 1).min(dim=1).values)
+    decided = res["cpu"][1] >= FAMILIES_GAP
+    n_decided = int(decided.sum())
+    if n_decided < 2 or not torch.equal(res["cpu"][0][decided],
+                                        res["gpu"][0][decided]):
+        raise AssertionError(
+            f"{cfg.name} generate {pname}: {n_decided} rows with a top-2 "
+            f"gap >= {FAMILIES_GAP}; CPU {res['cpu'][0][decided].tolist()} "
+            f"GPU {res['gpu'][0][decided].tolist()}")
+    return {"candidates": FAMILIES_CANDIDATES, "decided_rows": n_decided,
+            "equal_decided_rows": True,
+            "equal_rows_all": int((res["cpu"][0] == res["gpu"][0])
+                                  .all(dim=1).sum()),
+            "min_gap_decided": float(res["cpu"][1][decided].min()),
+            "sample": res["gpu"][0][decided][0].tolist(), "run_s": secs}
 
 
 def _block_masks_task():
@@ -2413,9 +2706,11 @@ def _profile_summary(prof, wall: float, table: str) -> dict:
                           e.count] for e in top_cpu]}
 
 
-def _profile_generate(cfg, lm) -> None:
-    """torch.profiler over 16 contiguous decode steps of the phase-5
-    ``generate`` shape (after an unprofiled prefill), once per policy."""
+def _profile_generate(cfg, lm, c=GENERATE, policies=("bf16", "int8-mlp"),
+                      phase="profile_generate") -> None:
+    """torch.profiler over 16 contiguous decode steps of a ``generate``
+    shape (the phase-5 one by default; after an unprofiled prefill), once
+    per policy."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2424,10 +2719,11 @@ def _profile_generate(cfg, lm) -> None:
                                           serve_policy)
     from repro_torch.models.api import build_model
     from repro_torch.serving.engine import greedy_argmax
-    b, s, steps = GENERATE["batch"], GENERATE["prompt_len"], 16
+    b, s, steps = c["batch"], c["prompt_len"], 16
     prompts = torch.from_numpy(lm_tokens(b * s, cfg.vocab_size, seed=1)
                                .reshape(b, s).astype(np.int32)).cuda()
-    for pname, int8 in (("bf16", False), ("int8-mlp", True)):
+    for pname in policies:
+        int8 = pname == "int8-mlp"
         model = build_model(cfg, serve_policy(int8))
         fns = make_serve_fns(model)
         generate(model, lm, prompts[:, :64], 4, 69, fns=fns)   # warm-up
@@ -2441,11 +2737,10 @@ def _profile_generate(cfg, lm) -> None:
             fns.decode_scan(lm, cache, tok, steps)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        emit({"phase": "profile_generate", "policy": pname, "batch": b,
-              "prompt_len": s, "decode_steps": steps, "wall_s": wall,
-              "decode_step_ms": 1e3 * wall / steps,
-              **_profile_summary(prof, wall,
-                                 f"profile_generate_{pname}.txt")})
+        emit({"phase": phase, "arch": cfg.name, "policy": pname,
+              "batch": b, "prompt_len": s, "decode_steps": steps,
+              "wall_s": wall, "decode_step_ms": 1e3 * wall / steps,
+              **_profile_summary(prof, wall, f"{phase}_{pname}.txt")})
         del fns, model, cache, logits
         torch.cuda.empty_cache()
 
@@ -2500,25 +2795,63 @@ def _device_ms_by_kernel(fn, flush, reps: int = 20,
             and e.count == reps and match in e.key}
 
 
-def phase_timing(launches: dict) -> list:
+def phase_timing(launches: dict, families: dict) -> list:
+    """Kernel rows at the phase-5 shapes (``launches``: phases 5 and 8),
+    with sub-rows at granite-moe-1b-a400m's burst and ``generate``
+    shapes and DeepSeek-V2's shared experts (``families``: phase 12's
+    launches)."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import flash_decode_paged as fdp
     c = SERVE
-    r, h, kvh, d = c["max_slots"], 28, 4, 128
-    ps, m = c["page_size"], c["max_blocks"]
-    dt = torch.bfloat16
-    item = 2
     gen = torch.Generator().manual_seed(2)
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     # scaled_dot_product_attention takes enable_gqa from torch 2.5 on
     sdpa_gqa = tuple(int(x) for x in
                      torch.__version__.split("+")[0].split(".")[:2]) >= (2, 5)
     rows = []
+    row = _paged_decode_row(gen, launches, flush, sdpa_gqa, *QWEN_ATTN)
+    sub = _paged_decode_row(gen, families, flush, sdpa_gqa, *GRANITE_ATTN)
+    row["granite"] = {key: sub[key] for key in SUB_ROW_KEYS + ("launches",)}
+    rows.append(row)
 
-    # decode: 8 requests mid-generation (512-token prompt + 32 tokens)
+    # prefill: the burst's fresh dispatch, 8 x 512-token prompts, then its
+    # shared-prefix dispatch, 8 x 256-token suffixes after 256 shared
+    # positions; granite's fresh dispatch
+    r, s = c["max_slots"], c["prompt_len"]
+    row = _prefill_row(gen, launches, flush, sdpa_gqa, [0] * r, [s] * r, s)
+    shared = _prefill_row(gen, launches, flush, sdpa_gqa,
+                          [c["prefix_len"]] * r,
+                          [s - c["prefix_len"]] * r, s - c["prefix_len"])
+    row["shared_prefix"] = {key: shared[key] for key in SUB_ROW_KEYS}
+    sub = _prefill_row(gen, families, flush, sdpa_gqa, [0] * r, [s] * r, s,
+                       GRANITE_ATTN)
+    row["granite"] = {key: sub[key] for key in SUB_ROW_KEYS + ("launches",)}
+    rows.append(row)
+    row = _flash_decode_row(gen, launches, flush, sdpa_gqa, QWEN_ATTN)
+    sub = _flash_decode_row(gen, families, flush, sdpa_gqa, GRANITE_ATTN)
+    row["granite"] = {key: sub[key] for key in SUB_ROW_KEYS + ("launches",)}
+    rows.append(row)
+    rows.append(_quant_matmul_row(gen, launches, flush, families))
+    rows.append(_block_sparse_row(launches, flush))
+    rows.append(_flash_attention_row(launches, flush, sdpa_gqa))
+    emit({"phase": "timing", "kernels": rows})
+    return rows
+
+
+def _paged_decode_row(gen, launches, flush, sdpa_gqa, h, kvh, d) -> dict:
+    """flash_decode_paged at the phase-5 pool (R = 8, page size 16, 37
+    pages a request) in bf16: 8 requests mid-generation (512-token prompt
+    + 32 tokens).  Bytes: the live K/V, q and out, mask and tables once;
+    operations: 4 * H * D * the live slots.  Library: SDPA over K/V
+    gathered to contiguous, with the layer's mask."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_decode_paged as fdp
+    c = SERVE
+    r, ps, m = c["max_slots"], c["page_size"], c["max_blocks"]
+    item = 2
     seq = [c["prompt_len"] + 32] * r
-    q, kp, vp, bt, mask = _decode_inputs(gen, r, h, kvh, d, ps, m, seq, dt)
+    q, kp, vp, bt, mask = _decode_inputs(gen, r, h, kvh, d, ps, m, seq,
+                                         torch.bfloat16)
     out = fdp.flash_decode_paged(q, kp, vp, bt, mask)
     launch = dict(fdp.last_launch)
     ref = fdp.flash_decode_paged_plain(q, kp, vp, bt, mask)
@@ -2533,55 +2866,41 @@ def phase_timing(launches: dict) -> list:
     am = mask[:, None, None, :]
     lib = (lambda: F.scaled_dot_product_attention(
         qs, kf, vf, attn_mask=am, enable_gqa=True)) if sdpa_gqa else None
-    rows.append({**_row("flash_decode_paged",
-                        "src/repro_torch/csrc/flash_decode_paged.cu",
-                        "src/repro/kernels/flash_decode_paged.py:74",
-                        launches, err, bf16_tol(ref),
-                        lambda: fdp.flash_decode_paged(q, kp, vp, bt, mask),
-                        lambda: fdp.flash_decode_paged_plain(q, kp, vp, bt,
-                                                             mask),
-                        lib, nbytes, flops, flush,
-                        {"R": r, "H": h, "KV": kvh, "D": d, "page_size": ps,
-                         "M": m, "seq_lens": seq[0], "dtype": "bfloat16"}),
-                 **launch, "device_ms_by_kernel": _device_ms_by_kernel(
-                     lambda: fdp.flash_decode_paged(q, kp, vp, bt, mask),
-                     flush)})
-
-    # prefill: the burst's fresh dispatch, 8 x 512-token prompts, then its
-    # shared-prefix dispatch, 8 x 256-token suffixes after 256 shared
-    # positions
-    s = c["prompt_len"]
-    row = _prefill_row(gen, launches, flush, sdpa_gqa, [0] * r, [s] * r, s)
-    shared = _prefill_row(gen, launches, flush, sdpa_gqa,
-                          [c["prefix_len"]] * r,
-                          [s - c["prefix_len"]] * r, s - c["prefix_len"])
-    row["shared_prefix"] = {key: shared[key] for key in SUB_ROW_KEYS}
-    rows.append(row)
-    rows.append(_flash_decode_row(gen, launches, flush, sdpa_gqa))
-    rows.append(_quant_matmul_row(gen, launches, flush))
-    rows.append(_block_sparse_row(launches, flush))
-    rows.append(_flash_attention_row(launches, flush, sdpa_gqa))
-    emit({"phase": "timing", "kernels": rows})
-    return rows
+    row = _row("flash_decode_paged",
+               "src/repro_torch/csrc/flash_decode_paged.cu",
+               "src/repro/kernels/flash_decode_paged.py:74",
+               launches, err, bf16_tol(ref),
+               lambda: fdp.flash_decode_paged(q, kp, vp, bt, mask),
+               lambda: fdp.flash_decode_paged_plain(q, kp, vp, bt, mask),
+               lib, nbytes, flops, flush,
+               {"R": r, "H": h, "KV": kvh, "D": d, "page_size": ps,
+                "M": m, "seq_lens": seq[0], "dtype": "bfloat16"})
+    row.update(launch, device_ms_by_kernel=_device_ms_by_kernel(
+        lambda: fdp.flash_decode_paged(q, kp, vp, bt, mask), flush))
+    row["tiles"] = {"chunk": launch.get("chunk"),
+                    "n_chunks": launch.get("n_chunks")}
+    return row
 
 
 SUB_ROW_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "max_abs_err", "variant", "tiles", "shapes")
 
 
-def _prefill_row(gen, launches, flush, sdpa_gqa, offs, lens, s) -> dict:
-    """flash_prefill_ragged at the phase-5 pool (R = 8, H = 28 over
-    KV = 4, D = 128, page size 16, 37 pages a request) in bf16: suffixes
-    of ``s`` positions at ``offs`` with ``lens`` live.  Bytes: q and out,
-    the live K/V and the tables once; operations: 4 * H * D * the causal
-    pairs.  Library: SDPA over K/V gathered to contiguous, with the
-    layer's mask."""
+def _prefill_row(gen, launches, flush, sdpa_gqa, offs, lens, s,
+                 attn=QWEN_ATTN) -> dict:
+    """flash_prefill_ragged at the phase-5 pool (R = 8, page size 16, 37
+    pages a request; ``attn`` = (H, KV, D), Qwen2-7B's by default) in
+    bf16: suffixes of ``s`` positions at ``offs`` with ``lens`` live.
+    Bytes: q and out, the live K/V and the tables once; operations: 4 * H
+    * D * the causal pairs.  Library: SDPA over K/V gathered to
+    contiguous, with the layer's mask."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_prefill_ragged as fpr
     from repro_torch.models import layers as L
     c = SERVE
-    r, h, kvh, d = c["max_slots"], 28, 4, 128
+    r = c["max_slots"]
+    h, kvh, d = attn
     ps, m, item = c["page_size"], c["max_blocks"], 2
     args = _prefill_inputs(gen, r, s, h, kvh, d, ps, m, offs, lens,
                            torch.bfloat16)
@@ -2719,15 +3038,17 @@ def _flash_attention_row(launches, flush, sdpa_gqa) -> dict:
     return row
 
 
-def _flash_decode_row(gen, launches, flush, sdpa_gqa) -> dict:
-    """Contiguous decode at the phase-5 shape: 8 sequences mid-generation
-    (512-token prompt + 32 tokens) over the 577-slot cache."""
+def _flash_decode_row(gen, launches, flush, sdpa_gqa, attn) -> dict:
+    """Contiguous decode at the phase-5 ``generate`` shape: 8 sequences
+    mid-generation (512-token prompt + 32 tokens) over the 577-slot cache,
+    ``attn`` = (H, KV, D)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.models import layers as L
     c = GENERATE
-    b, h, kvh, d = c["batch"], 28, 4, 128
+    b = c["batch"]
+    h, kvh, d = attn
     n = c["prompt_len"] + c["gen"] + 1
     pos = c["prompt_len"] + 32
     item = 2
@@ -2745,15 +3066,18 @@ def _flash_decode_row(gen, launches, flush, sdpa_gqa) -> dict:
     am = mask[None, None, None, :]
     lib = (lambda: F.scaled_dot_product_attention(
         qs, ks, vs, attn_mask=am, enable_gqa=True)) if sdpa_gqa else None
-    return {**_row("flash_decode", "src/repro_torch/csrc/flash_decode.cu",
-                   "src/repro/kernels/flash_decode.py:130", launches, err,
-                   bf16_tol(ref), lambda: fd.flash_decode(q, k, v, mask),
-                   lambda: fd.flash_decode_plain(q, k, v, mask), lib,
-                   nbytes, flops, flush,
-                   {"B": b, "H": h, "KV": kvh, "D": d, "L": n, "pos": pos,
-                    "dtype": "bfloat16"}),
-            **launch, "device_ms_by_kernel": _device_ms_by_kernel(
-                lambda: fd.flash_decode(q, k, v, mask), flush)}
+    row = _row("flash_decode", "src/repro_torch/csrc/flash_decode.cu",
+               "src/repro/kernels/flash_decode.py:130", launches, err,
+               bf16_tol(ref), lambda: fd.flash_decode(q, k, v, mask),
+               lambda: fd.flash_decode_plain(q, k, v, mask), lib,
+               nbytes, flops, flush,
+               {"B": b, "H": h, "KV": kvh, "D": d, "L": n, "pos": pos,
+                "dtype": "bfloat16"})
+    row.update(launch, device_ms_by_kernel=_device_ms_by_kernel(
+        lambda: fd.flash_decode(q, k, v, mask), flush))
+    row["tiles"] = {"chunk": launch.get("chunk"),
+                    "n_chunks": launch.get("n_chunks")}
+    return row
 
 
 # Qwen2-7B's gate/up projection at decode (the row's own numbers) and at
@@ -2767,23 +3091,32 @@ QMM_ROWS = (("gate_up_8", 8, 3584, 18944), ("prefill", 4096, 3584, 18944),
             ("tune_lm_head", 128, 3584, 152064),
             ("train_up_256", 256, 3584, 18944),
             ("train_down_256", 256, 18944, 3584))
+# DeepSeek-V2's shared experts (phase 12, int8-mlp): gate/up and down at
+# decode (M = 4) and prefill (M = 1,024)
+QMM_FAMILY_ROWS = (("dsv2_up_4", 4, 5120, 3072),
+                   ("dsv2_up_1024", 1024, 5120, 3072),
+                   ("dsv2_down_4", 4, 3072, 5120),
+                   ("dsv2_down_1024", 1024, 3072, 5120))
 QMM_SUB_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "library_note", "quantize_ms", "wrapper_ms", "max_abs_err",
                 "shapes", "variant", "tiles", "swap", "splits",
-                "device_ms_by_kernel")
+                "device_ms_by_kernel", "launches")
 
 
-def _quant_matmul_row(gen, launches, flush) -> dict:
+def _quant_matmul_row(gen, launches, flush, families) -> dict:
     """The int8 product on operands already quantized, at each shape of
-    :data:`QMM_ROWS`, with the variant, tiles and splits that ran, and the
-    weight quantization that every call also pays (``quantize_ms``) and
-    the whole wrapper (``wrapper_ms``) timed beside it.  Library:
+    :data:`QMM_ROWS` and :data:`QMM_FAMILY_ROWS` (their ``launches`` from
+    phase 12's ``families``), with the variant, tiles and splits that ran,
+    and the weight quantization that every call also pays
+    (``quantize_ms``) and the whole wrapper (``wrapper_ms``) timed beside
+    it.  Library:
     ``torch._int_mm`` on the same int8 operands (int32 out, no
     dequantization), which refuses M <= 16."""
     import torch
     from repro_torch.kernels import quant_matmul as qmm
     row = None
-    for label, m, k, n in QMM_ROWS:
+    for label, m, k, n in QMM_ROWS + QMM_FAMILY_ROWS:
+        counts = families if label.startswith("dsv2") else launches
         x = torch.randn((m, k), generator=gen).to(torch.bfloat16).cuda()
         w = (0.02 * torch.randn((k, n), generator=gen)).to(
             torch.bfloat16).cuda()
@@ -2804,7 +3137,7 @@ def _quant_matmul_row(gen, launches, flush) -> dict:
         except RuntimeError as e:
             lib, why = None, str(e).splitlines()[0][:160]
         r = _row("quant_matmul", "src/repro_torch/csrc/quant_matmul.cu",
-                 "src/repro/kernels/quant_matmul.py:55", launches, err, 0.0,
+                 "src/repro/kernels/quant_matmul.py:55", counts, err, 0.0,
                  lambda: qmm.int8_matmul(*ops),
                  lambda: qmm.int8_matmul_plain(*ops), lib, nbytes, flops,
                  flush, {"M": m, "K": k, "N": n, "x": "bfloat16",
@@ -2847,8 +3180,9 @@ def _row(name, source, replaces, launches, err, tol, kernel, plain, lib,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,8,9,10,11",
-                    help="comma-separated phases to run (default: all)")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,8,9,10,11,12",
+                    help="comma-separated phases to run (default: all "
+                         "but 7)")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the tree whose repro_torch to drive (default: "
                          "this checkout's); another commit's src/ with "
@@ -2889,6 +3223,7 @@ def main(argv=None) -> int:
         launches = phase_serve()
     tune_launches = phase_tune() if 8 in phases else {}
     designflow_launches = phase_designflow() if 11 in phases else {}
+    families_launches = phase_families() if 12 in phases else {}
     flow_launches, durable_launches = {}, {}
     if 9 in phases or 10 in phases:
         model = params = None
@@ -2903,12 +3238,13 @@ def main(argv=None) -> int:
     # block_sparse_matmul and flash_attention run on phase 8's path only
     for name in ("block_sparse_matmul", "flash_attention"):
         launches[name] = tune_launches.get(name, 0)
-    rows = phase_timing(launches) if 6 in phases else []
+    rows = phase_timing(launches, families_launches) if 6 in phases else []
     for row in rows:
         row["tune_launches"] = tune_launches.get(row["name"], 0)
         row["serveflow_launches"] = flow_launches.get(row["name"], 0)
         row["durable_launches"] = durable_launches.get(row["name"], 0)
         row["designflow_launches"] = designflow_launches.get(row["name"], 0)
+        row["families_launches"] = families_launches.get(row["name"], 0)
     if 7 in phases:
         phase_profile()
     emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 3)})

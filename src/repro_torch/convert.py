@@ -3,9 +3,10 @@
 :func:`params_from_jax` takes the JAX parameter pytree of a dense LM
 (``repro.models.transformer.init_lm``) with numpy leaves and returns the
 port's ``state_dict``: nested keys join with ``.``, and the stacked
-``blocks`` axis splits into ``blocks.{i}.…``.  :func:`cache_from_jax`
-takes a contiguous decode cache (``init_lm_cache``'s ``k``, ``v``,
-``pos``, or one layer's).  :func:`bench_params_from_jax` takes the
+``blocks`` axis splits into ``blocks.{i}.…`` (dense and MoE blocks,
+GQA or MLA attention alike).  :func:`cache_from_jax` takes a contiguous
+decode cache (``init_lm_cache``'s ``k``, ``v``, ``pos`` — MLA's ``ckv``,
+``krope``, ``pos`` — or one layer's).  :func:`bench_params_from_jax` takes the
 parameters of a bench model (``models/cnn.py``: ``{"fc0": {"w", "b"}}``,
 ``{"conv0": {"w", "bn": {...}}}``) and keeps their nesting.  bf16 leaves
 are read through their 16-bit patterns, so no bf16 numpy dtype is needed
@@ -56,10 +57,12 @@ def bench_params_from_jax(tree):
 
 
 def cache_from_jax(tree) -> dict[str, torch.Tensor | int]:
-    """JAX contiguous cache ``{"k", "v", "pos"}`` with numpy leaves -> the
-    port's cache (CPU tensors): the stacked model cache keeps ``pos`` as an
-    (L,) int32 tensor, one layer's cache as a Python int."""
-    out = {name: _tensor(np.asarray(tree[name])) for name in ("k", "v")}
+    """JAX contiguous cache (``{"k", "v", "pos"}``, or MLA's ``{"ckv",
+    "krope", "pos"}``) with numpy leaves -> the port's cache (CPU
+    tensors): the stacked model cache keeps ``pos`` as an (L,) int32
+    tensor, one layer's cache as a Python int."""
+    out = {name: _tensor(np.asarray(leaf)) for name, leaf in tree.items()
+           if name != "pos"}
     pos = np.asarray(tree["pos"])
     out["pos"] = int(pos) if pos.ndim == 0 else _tensor(
         pos.astype(np.int32))

@@ -5,12 +5,17 @@ cache.
         [--int8] [--batch 4 --prompt-len 32 --gen 16] [--no-scan] \\
         [--device cpu --smoke]
 
+``--arch`` takes any config the port builds: the dense ones and the MoE
+family (``granite_moe_1b_a400m``; ``deepseek_v2_236b``, whose MLA cache
+holds the compressed ``ckv``/``krope``).
+
 One prefill fills the cache, then ``--gen`` greedy tokens are generated
 (the first from the prefill's logits).  On the card the decode attention
-runs the flash_decode kernel and, under ``--int8`` (the int8-mlp policy of
-the JAX package's ``examples/serve_lm.py``: ``*mlp*`` → int8), the MLP
-products run the quant_matmul kernel; there is no switch to turn the
-kernels off.  The default decode loop keeps the greedy tokens on the
+runs the flash_decode kernel (MLA's is plain PyTorch, as in the JAX
+package) and, under ``--int8`` (the int8-mlp policy of the JAX package's
+``examples/serve_lm.py``: ``*mlp*`` → int8), the MLP products (in an MoE
+model the shared experts') run the quant_matmul kernel; there is no
+switch to turn the kernels off.  The default decode loop keeps the greedy tokens on the
 device and reads them back once (the counterpart of the JAX package's
 ``lax.scan``); ``--no-scan`` reads every token back to the host before
 the next step.  Both give the same tokens.

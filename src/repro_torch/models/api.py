@@ -1,4 +1,5 @@
-"""Model protocol: one handle over the ported model families.
+"""Model protocol: one handle over the ported model families (dense and
+MoE decoders, GQA or MLA attention).
 
 ``build_model(cfg, policy, device=...)`` returns an :class:`LMModel`
 exposing ``init(seed)`` (randomly initialised parameters),
@@ -78,7 +79,10 @@ class LMModel:
     def loss(self, params: T.LM, batch: dict, ctx: Ctx | None = None):
         """Mean LM cross-entropy of ``batch["tokens"]`` (B, S) against
         ``batch["labels"]`` (tensors on the model's device), plus the
-        1e-4 z-loss; returns (loss, {"nll", "ppl_proxy"}).  Uncached and
+        1e-4 z-loss; returns (loss, {"nll", "ppl_proxy"}).  No MoE
+        auxiliary loss is added: the JAX package's ``loss`` adds none
+        either (its docstring's "+ 0.01 · MoE aux loss" is not in its
+        code); :func:`layers.moe_aux_loss` computes it.  Uncached and
         differentiable — unlike :meth:`prefill` and :meth:`decode_step`,
         which run without autograd."""
         ctx = ctx or self.ctx()
@@ -124,5 +128,5 @@ def build_model(cfg: ArchConfig, policy: PrecisionPolicy | None = None,
                 device: str | torch.device | None = None) -> LMModel:
     if policy is None:
         policy = PrecisionPolicy(default="bf16", exempt=DEFAULT_EXEMPT)
-    T._check_dense(cfg)
+    T.check_ported(cfg)
     return LMModel(cfg=cfg, device=resolve_device(device), policy=policy)

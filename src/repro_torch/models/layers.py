@@ -1,6 +1,6 @@
-"""Dense GQA attention and MLPs.
+"""Attention (GQA and MLA), MLPs and the MoE FFN.
 
-Attention has the JAX package's execution paths for dense GQA layers:
+GQA attention has the JAX package's execution paths:
 
 - uncached (train / plain prefill): chunked memory-efficient attention
   (:func:`mea_attention`, online softmax over kv chunks);
@@ -17,7 +17,14 @@ The decode and paged branches always call their kernel's wrapper
 (kernels/flash_decode.py, flash_decode_paged.py, flash_prefill_ragged.py),
 which launches the CUDA kernel for a CUDA tensor and runs the plain
 PyTorch version (built from :func:`_masked_decode_attention` and
-:func:`mea_attention`) for a CPU tensor.  MLA and MoE are not ported yet.
+:func:`mea_attention`) for a CPU tensor.
+
+MLA (:func:`mla_attention`) and the MoE FFN (:func:`moe_ffn`) are
+computed by the JAX package outside any Pallas kernel, and here with
+plain PyTorch products: MLA's uncached and prefill paths through
+:func:`mea_attention`, its decode as fp32 attention over the whole
+compressed cache; the MoE FFN routes each token through its top-k
+experts in fp32, in fixed row blocks on the card.
 """
 
 from __future__ import annotations
@@ -25,11 +32,13 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import (Ctx, Norm, act_fn, apply_rope,
-                                       dense_init, linear, norm_apply)
+                                       dense_init, linear, norm_apply,
+                                       row_invariant_matmul)
 
 NEG_INF = -1e30
 EMPTY_POS = 2**30
@@ -37,6 +46,15 @@ EMPTY_POS = 2**30
 
 def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
+
+
+def _weight(gen: torch.Generator | None, d_in: int, d_out: int, dtype,
+            device, scale: float | None = None) -> torch.Tensor:
+    """A ``(d_in, d_out)`` weight drawn from ``gen`` as ``dense_init``
+    draws it, or left uninitialised on ``device`` without a generator."""
+    if gen is not None:
+        return dense_init(gen, d_in, d_out, dtype, scale)
+    return torch.empty((d_in, d_out), dtype=dtype, device=device)
 
 
 # =====================================================================
@@ -59,9 +77,8 @@ class Attention(nn.Module):
                   "wo": (h * hd, d)}
         for name, (d_in, d_out) in shapes.items():
             scale = 1.0 / math.sqrt(h * hd) if name == "wo" else None
-            w = (dense_init(gen, d_in, d_out, dt, scale) if gen is not None
-                 else torch.empty((d_in, d_out), dtype=dt, device=device))
-            setattr(self, name, _param(w))
+            setattr(self, name,
+                    _param(_weight(gen, d_in, d_out, dt, device, scale)))
         if cfg.qkv_bias:
             self.bq = _param(torch.zeros((h * hd,), dtype=dt, device=device))
             self.bk = _param(torch.zeros((kv * hd,), dtype=dt,
@@ -405,27 +422,149 @@ def _paged_attention_prefill(cfg: ArchConfig, q, k, v, cache):
 
 
 # =====================================================================
-# Dense MLPs
+# MLA (DeepSeek-V2 multi-head latent attention)
 # =====================================================================
-class MLP(nn.Module):
-    """GLU (``w_gate``, ``w_up``, ``w_down``) or GELU MLP (``w_up``,
-    ``w_down`` and optional biases) parameters, stored ``(in, out)``;
-    drawn from ``gen`` as the JAX package's ``init_mlp`` draws them, or
-    left uninitialised without one."""
+class MLA(nn.Module):
+    """MLA parameters, named as the JAX package's ``init_mla``: the query
+    path ``wq_a`` → ``q_a_norm`` → ``wq_b`` (or ``wq`` when
+    ``q_lora_rank`` is 0), the compressed K/V path ``wkv_a`` (to
+    ``kv_lora_rank + rope_head_dim``) → ``kv_a_norm``, its expansion
+    ``wkv_b`` (to the heads' nope keys and values) and ``wo``."""
 
     def __init__(self, cfg: ArchConfig, device=None,
                  gen: torch.Generator | None = None):
         super().__init__()
-        d, f = cfg.d_model, cfg.d_ff
+        d, h = cfg.d_model, cfg.n_heads
+        qd = cfg.nope_head_dim + cfg.rope_head_dim
+        dt = cfg.pdt
+        shapes = ({"wq_a": (d, cfg.q_lora_rank),
+                   "wq_b": (cfg.q_lora_rank, h * qd)} if cfg.q_lora_rank
+                  else {"wq": (d, h * qd)})
+        shapes.update(
+            wkv_a=(d, cfg.kv_lora_rank + cfg.rope_head_dim),
+            wkv_b=(cfg.kv_lora_rank,
+                   h * (cfg.nope_head_dim + cfg.v_head_dim)),
+            wo=(h * cfg.v_head_dim, d))
+        for name, (d_in, d_out) in shapes.items():
+            setattr(self, name, _param(_weight(gen, d_in, d_out, dt, device)))
+        if cfg.q_lora_rank:
+            self.q_a_norm = Norm(cfg.norm, cfg.q_lora_rank, dt, device)
+        self.kv_a_norm = Norm(cfg.norm, cfg.kv_lora_rank, dt, device)
+
+
+def mla_attention(ctx: Ctx, cfg: ArchConfig, p: MLA, x, positions,
+                  cache: dict | None = None):
+    """MLA with the compressed cache (``ckv`` and ``krope`` only), as the
+    JAX package's ``mla_attention``.  Returns (y, cache).
+
+    - ``cache is None``: chunked MEA over the sequence;
+    - ``ctx.decode``: the new tokens' ``ckv``/``krope`` are written in
+      place at ``pos`` (the start clamped as ``dynamic_update_slice``
+      clamps it) and the queries attend every slot ``<= pos`` of the
+      whole cache in fp32 — for one token the causal mask; for S > 1 the
+      new tokens do not see one another, as in the reference;
+    - otherwise a prefill from position 0 that also fills the cache.
+
+    The nope keys and the values are recomputed from the compressed
+    cache at attention time (fp32 products with ``wkv_b``, as the
+    reference's einsums); q and k are ``nope + rope`` wide, v
+    ``v_head_dim``.  ``wkv_b`` is no ``linear`` call, so no policy
+    reaches it."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    nd, rd, vd = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    kvl = cfg.kv_lora_rank
+    if cfg.q_lora_rank:
+        qa = linear(ctx, "attn/wq_a", x, p.wq_a)
+        qa = norm_apply(cfg.norm, p.q_a_norm, qa)
+        q = linear(ctx, "attn/wq_b", qa, p.wq_b)
+    else:
+        q = linear(ctx, "attn/wq", x, p.wq)
+    q = q.reshape(b, s, h, nd + rd)
+    q_rope = apply_rope(q[..., nd:], positions, cfg.rope_theta)
+
+    kv_a = linear(ctx, "attn/wkv_a", x, p.wkv_a)
+    ckv = norm_apply(cfg.norm, p.kv_a_norm, kv_a[..., :kvl])
+    k_rope = apply_rope(kv_a[:, :, None, kvl:], positions,
+                        cfg.rope_theta)[:, :, 0]
+
+    decode = cache is not None and ctx.decode
+    if decode:
+        ckv_use, kr_use = cache["ckv"], cache["krope"]
+        pos = int(cache["pos"])
+        start = min(max(pos, 0), ckv_use.shape[1] - s)
+        ckv_use[:, start:start + s] = ckv.to(ckv_use.dtype)
+        kr_use[:, start:start + s] = k_rope.to(kr_use.dtype)
+        slot = torch.arange(ckv_use.shape[1], device=x.device)
+        kv_pos = torch.where(slot <= pos, slot, EMPTY_POS)
+        cache = {"ckv": ckv_use, "krope": kr_use, "pos": pos + s}
+    else:
+        kv_pos = positions
+        ckv_use, kr_use = ckv, k_rope
+        if cache is not None:
+            cache["ckv"][:, :s] = ckv.to(cache["ckv"].dtype)
+            cache["krope"][:, :s] = k_rope.to(cache["krope"].dtype)
+            cache = {"ckv": cache["ckv"], "krope": cache["krope"], "pos": s}
+
+    wkv_b = p.wkv_b.float().reshape(kvl, h, nd + vd)
+    cf = ckv_use.float()
+    k_nope = torch.einsum("bsc,chd->bshd", cf, wkv_b[..., :nd])
+    v = torch.einsum("bsc,chd->bshd", cf, wkv_b[..., nd:]).to(x.dtype)
+    k = torch.cat([k_nope.to(x.dtype),
+                   kr_use[:, :, None, :].expand(-1, -1, h, -1).to(x.dtype)],
+                  dim=-1)
+    qfull = torch.cat([q[..., :nd], q_rope], dim=-1)
+
+    if decode:
+        scale = 1.0 / math.sqrt(nd + rd)
+        sgl = torch.einsum("bqhd,bkhd->bhqk", qfull.float() * scale,
+                           k.float())
+        sgl = torch.where((kv_pos < EMPTY_POS)[None, None, None, :], sgl,
+                          NEG_INF)
+        w = torch.softmax(sgl, dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", w, v.float()).to(x.dtype)
+    else:
+        out = mea_attention(qfull, k, v, positions, kv_pos, causal=True,
+                            chunk=cfg.attn_chunk, bf16_operands=cfg.mea_bf16)
+    y = linear(ctx, "attn/wo", out.reshape(b, s, h * vd), p.wo)
+    return y, cache
+
+
+def init_mla_cache(cfg: ArchConfig, batch: int, seq_len: int,
+                   dtype=torch.bfloat16, device=None) -> dict:
+    """One layer's compressed decode cache: ``ckv`` (B, seq_len,
+    kv_lora_rank) and ``krope`` (B, seq_len, rope_head_dim) zeros, ``pos``
+    0 (a host integer, as the dense cache's)."""
+    return {"ckv": torch.zeros((batch, seq_len, cfg.kv_lora_rank),
+                               dtype=dtype, device=device),
+            "krope": torch.zeros((batch, seq_len, cfg.rope_head_dim),
+                                 dtype=dtype, device=device),
+            "pos": 0}
+
+
+# =====================================================================
+# Dense MLPs
+# =====================================================================
+class MLP(nn.Module):
+    """GLU (``w_gate``, ``w_up``, ``w_down``) or GELU MLP (``w_up``,
+    ``w_down`` and optional biases) parameters, stored ``(in, out)``, of
+    width ``d_ff`` (``cfg.d_ff`` by default); drawn from ``gen`` as the JAX
+    package's ``init_mlp`` draws them, or left uninitialised without
+    one."""
+
+    def __init__(self, cfg: ArchConfig, device=None,
+                 gen: torch.Generator | None = None,
+                 d_ff: int | None = None):
+        super().__init__()
+        d, f = cfg.d_model, cfg.d_ff if d_ff is None else d_ff
         dt = cfg.pdt
         names = ["w_gate", "w_up", "w_down"] if cfg.mlp == "glu" \
             else ["w_up", "w_down"]
         for name in names:
             d_in, d_out = (f, d) if name == "w_down" else (d, f)
             scale = 1.0 / math.sqrt(f) if name == "w_down" else None
-            w = (dense_init(gen, d_in, d_out, dt, scale) if gen is not None
-                 else torch.empty((d_in, d_out), dtype=dt, device=device))
-            setattr(self, name, _param(w))
+            setattr(self, name,
+                    _param(_weight(gen, d_in, d_out, dt, device, scale)))
         if cfg.mlp != "glu" and cfg.mlp_bias:
             self.b_up = _param(torch.zeros((f,), dtype=dt, device=device))
             self.b_down = _param(torch.zeros((d,), dtype=dt, device=device))
@@ -440,3 +579,154 @@ def mlp(ctx: Ctx, cfg: ArchConfig, p: MLP, x):
     u = linear(ctx, "mlp/w_up", x, p.w_up, getattr(p, "b_up", None))
     h = act_fn("gelu")(u.float()).to(x.dtype)
     return linear(ctx, "mlp/w_down", h, p.w_down, getattr(p, "b_down", None))
+
+
+# =====================================================================
+# Mixture of Experts
+# =====================================================================
+# On the card the number of rows routed to an expert depends on the other
+# requests in the batch, and cuBLAS picks a product's algorithm by its row
+# count: a token's bits would move with its neighbours, and the recovery
+# lanes rest on bit-identical greedy tokens.  So every expert product on
+# the card runs in blocks of MOE_ROW_BLOCK rows, each expert's rows padded
+# with zero rows to a whole number of blocks, in prefill and decode alike.
+MOE_ROW_BLOCK = 64
+# .tolist() reads of the expert counts, one per MoE layer call
+moe_host_syncs = 0
+
+
+class MoE(nn.Module):
+    """MoE parameters, named as the JAX package's ``init_moe``: ``router``
+    (d, E) in fp32 whatever the parameter dtype, the stacked experts
+    ``w_gate``/``w_up`` (E, d, f) and ``w_down`` (E, f, d), and with shared
+    experts ``shared``, a GLU :class:`MLP` of width ``d_expert ×
+    n_shared_experts``."""
+
+    def __init__(self, cfg: ArchConfig, device=None,
+                 gen: torch.Generator | None = None):
+        super().__init__()
+        d, f, e = cfg.d_model, cfg.d_expert, cfg.n_experts
+        self.router = _param(_weight(gen, d, e, torch.float32, device))
+        for name, (d_in, d_out) in (("w_gate", (d, f)), ("w_up", (d, f)),
+                                    ("w_down", (f, d))):
+            w = torch.empty((e, d_in, d_out), dtype=cfg.pdt, device=device)
+            if gen is not None:     # one expert at a time: no (E, d, f)
+                scale = 1.0 / math.sqrt(f) if name == "w_down" else None
+                for i in range(e):  # fp32 temporary
+                    w[i] = dense_init(gen, d_in, d_out, cfg.pdt, scale)
+            setattr(self, name, _param(w))
+        if cfg.n_shared_experts:
+            self.shared = MLP(cfg.replace(mlp="glu"), device, gen,
+                              d_ff=cfg.d_expert * cfg.n_shared_experts)
+
+
+def _top_k(probs: torch.Tensor, k: int):
+    """The ``k`` largest of each row, ties to the lower index first as
+    ``jax.lax.top_k`` takes them (a stable descending sort; ``torch.topk``
+    promises no order among ties)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _router(cfg: ArchConfig, router_w, x):
+    """Gates and expert indices (N, top_k) of the N tokens of ``x`` (...,
+    d): fp32 logits, softmax, top-k, the gates renormalised by
+    ``max(sum, 1e-9)``.  The logits are a row-invariant product (fixed
+    row blocks on the card for more than one token a row)."""
+    logits = row_invariant_matmul(x.float(), router_w.float())
+    probs = torch.softmax(logits.reshape(-1, cfg.n_experts), dim=-1)
+    gates, eidx = _top_k(probs, cfg.top_k)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    return gates, eidx
+
+
+def moe_ffn(ctx: Ctx, cfg: ArchConfig, p: MoE, x):
+    """Top-k routed MoE: the JAX package's single-device function.
+
+    The reference (``_moe_dense_reference``) multiplies every token
+    through every expert in fp32 and weights the results by a combine
+    matrix that is zero outside the token's top-k; here each token goes
+    through its top-k experts only (:func:`_moe_routed`), which computes
+    the same sum.  Like the reference's, the routed experts ignore the
+    policy.  The shared experts are a GLU ``mlp`` (``mlp/…`` names, so a
+    policy reaches them) added after the routed sum is cast to
+    ``x.dtype``."""
+    y_shared = 0.0
+    if cfg.n_shared_experts:
+        y_shared = mlp(ctx, cfg.replace(mlp="glu"), p.shared, x)
+    y = _moe_routed(cfg, p, x, MOE_ROW_BLOCK if x.is_cuda else None)
+    return y + y_shared
+
+
+def _moe_routed(cfg: ArchConfig, p: MoE, x, row_block: int | None):
+    """``sum_k gate[n, k] * expert_{eidx[n, k]}(x_n)`` for every token, in
+    fp32 (the products and SiLU), cast to ``x.dtype``.
+
+    The (token, k) routings are sorted by expert (stably, so each expert
+    takes its tokens in order) and gathered into one padded row layout:
+    expert ``e``'s rows are a contiguous range, padded with zero rows to
+    a multiple of ``row_block`` (no padding for ``None``).  Each expert
+    multiplies its range ``row_block`` rows at a time (one product for
+    ``None``); experts with no token are skipped.  The expert counts come
+    back to the host in one read.  Each token's k outputs are then
+    gathered back and summed in k order: no atomic scatter anywhere."""
+    global moe_host_syncs
+    e, k = cfg.n_experts, cfg.top_k
+    b, s, d = x.shape
+    dev = x.device
+    gates, eidx = _router(cfg, p.router, x)
+    n = gates.shape[0]
+    sorted_ids, order = torch.sort(eidx.reshape(-1), stable=True)
+    bounds = torch.searchsorted(sorted_ids, torch.arange(e + 1, device=dev))
+    counts_d = bounds[1:] - bounds[:-1]
+    bounds_h = bounds.tolist()                 # the layer's one host read
+    moe_host_syncs += 1
+    counts = [bounds_h[i + 1] - bounds_h[i] for i in range(e)]
+    if row_block is None:
+        padded, padded_d = counts, counts_d
+    else:
+        padded = [-(-c // row_block) * row_block for c in counts]
+        padded_d = (counts_d + row_block - 1) // row_block * row_block
+    pstart_d = torch.cumsum(padded_d, 0) - padded_d
+    total = sum(padded)
+    # padded row of each sorted routing, and the token row of each padded
+    # row (``n``, one zero row past the tokens, for padding)
+    dest = (torch.arange(n * k, device=dev)
+            + (pstart_d - bounds[:-1])[sorted_ids])
+    src = torch.full((total,), n, dtype=torch.long, device=dev)
+    src[dest] = order // k
+    xf = x.reshape(n, d).float()
+    xg = torch.cat([xf, xf.new_zeros((1, d))])[src]
+
+    wg, wu, wd = (w.unbind(0) for w in (p.w_gate, p.w_up, p.w_down))
+    spans = []                                  # (expert, row0, row1)
+    start = 0
+    for i, rows in enumerate(padded):
+        if rows:
+            step = row_block or rows
+            spans += [(i, a, a + step)
+                      for a in range(start, start + rows, step)]
+        start += rows
+    g = torch.cat([xg[a:z] @ wg[i].float() for i, a, z in spans])
+    u = torch.cat([xg[a:z] @ wu[i].float() for i, a, z in spans])
+    hh = F.silu(g) * u
+    yg = torch.cat([hh[a:z] @ wd[i].float() for i, a, z in spans])
+    pos = torch.empty_like(dest)
+    pos[order] = dest
+    ye = yg[pos].reshape(n, k, d)
+    y = ye[:, 0] * gates[:, :1]
+    for j in range(1, k):
+        y = y + ye[:, j] * gates[:, j:j + 1]
+    return y.reshape(b, s, d).to(x.dtype)
+
+
+def moe_aux_loss(cfg: ArchConfig, router_w, x) -> torch.Tensor:
+    """Switch-style load-balancing auxiliary loss: ``E * sum_e (share of
+    top-k routings to e) * (mean router probability of e)``."""
+    x2 = x.reshape(-1, x.shape[-1])
+    probs = torch.softmax(x2.float() @ router_w.float(), dim=-1)
+    _, eidx = _top_k(probs, cfg.top_k)
+    onehot = F.one_hot(eidx, cfg.n_experts).float()
+    frac_tokens = onehot.sum(dim=1).mean(dim=0)
+    frac_probs = probs.mean(dim=0)
+    return cfg.n_experts * torch.sum(frac_tokens * frac_probs)

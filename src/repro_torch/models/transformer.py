@@ -1,15 +1,18 @@
-"""Model assembly: dense decoder-only LMs.
+"""Model assembly: decoder-only LMs of the dense and MoE families.
 
-Block: ``[attn_norm → attn → +res, mlp_norm → mlp → +res] × L``.  The JAX
-package stacks the block parameters on a leading layer axis and scans
-over them; here the blocks are an ``nn.ModuleList`` walked by a Python
-loop.  Both KV caches keep one stacked tensor per K and V — the paged
-pool ``(L, P, ps, KV, D)``, the contiguous cache ``(L, B, S, KV, D)`` —
+Block: ``[attn_norm → attn → +res, mlp_norm → mlp → +res] × L``; in the
+``moe`` family the MoE FFN (``moe``) takes the MLP's place, and with
+``cfg.use_mla`` the attention is MLA.  The JAX package stacks the block
+parameters on a leading layer axis and scans over them; here the blocks
+are an ``nn.ModuleList`` walked by a Python loop.  Every decode cache
+keeps one stacked tensor per cached quantity — the paged pool ``(L, P,
+ps, KV, D)``, the contiguous cache ``(L, B, S, KV, D)`` and MLA's
+compressed ``ckv`` (L, B, S, kv_lora) and ``krope`` (L, B, S, rope) —
 and layer ``l`` receives the view ``stack[l]``, so the layers' in-place
 writes land in the stack (and the engine can swap pages out as
 ``pool[:, pages]``).
 
-MoE, MLA, SSM, hybrid and encoder-decoder families are not ported yet.
+The SSM, hybrid and encoder-decoder families are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,12 +26,14 @@ from repro_torch.models.common import (Ctx, Norm, dense_init, embed_init,
                                        linear, norm_apply)
 
 
-def _check_dense(cfg: ArchConfig) -> None:
-    if (cfg.family not in ("dense", "vlm") or cfg.is_moe or cfg.use_mla
-            or cfg.enc_dec or cfg.hybrid_period):
+def check_ported(cfg: ArchConfig) -> None:
+    """Refuse the families this port does not build yet: SSM, hybrid and
+    encoder-decoder."""
+    if (cfg.family not in ("dense", "vlm", "moe") or cfg.enc_dec
+            or cfg.hybrid_period):
         raise NotImplementedError(
             f"{cfg.name}: family={cfg.family} is not ported yet; this port "
-            f"covers dense GQA decoders")
+            f"covers dense and MoE decoders (GQA or MLA attention)")
 
 
 def padded_vocab(cfg: ArchConfig) -> int:
@@ -43,22 +48,25 @@ class Block(nn.Module):
                  gen: torch.Generator | None = None):
         super().__init__()
         self.attn_norm = Norm(cfg.norm, cfg.d_model, cfg.pdt, device)
-        self.attn = L.Attention(cfg, device, gen)
+        self.attn = (L.MLA if cfg.use_mla else L.Attention)(cfg, device, gen)
         self.mlp_norm = Norm(cfg.norm, cfg.d_model, cfg.pdt, device)
-        self.mlp = L.MLP(cfg, device, gen)
+        if cfg.is_moe:
+            self.moe = L.MoE(cfg, device, gen)
+        else:
+            self.mlp = L.MLP(cfg, device, gen)
 
 
 class LM(nn.Module):
-    """Parameters of a dense decoder-only LM, named as the JAX package's
-    pytree (``embed``, ``blocks.{i}.attn.wq``, ``final_norm.scale``,
-    ``lm_head``).  With a generator every weight is drawn in init order;
+    """Parameters of a decoder-only LM, named as the JAX package's pytree
+    (``embed``, ``blocks.{i}.attn.wq``, ``blocks.{i}.moe.w_gate``,
+    ``final_norm.scale``, ``lm_head``).  With a generator every weight is drawn in init order;
     without one the module is allocated uninitialised for
     ``load_state_dict``."""
 
     def __init__(self, cfg: ArchConfig, device=None,
                  gen: torch.Generator | None = None):
         super().__init__()
-        _check_dense(cfg)
+        check_ported(cfg)
         vp = padded_vocab(cfg)
         emb = (embed_init(gen, vp, cfg.d_model, cfg.pdt) if gen is not None
                else torch.empty((vp, cfg.d_model), dtype=cfg.pdt,
@@ -126,11 +134,17 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig) -> LM:
 def lm_block_apply(ctx: Ctx, cfg: ArchConfig, p: Block, x, positions,
                    cache):
     h = norm_apply(cfg.norm, p.attn_norm, x)
-    a, cache = L.attention(ctx, cfg, p.attn, h, positions, cache)
+    if cfg.use_mla:
+        a, cache = L.mla_attention(ctx, cfg, p.attn, h, positions, cache)
+    else:
+        a, cache = L.attention(ctx, cfg, p.attn, h, positions, cache)
     x = x + a
     h = norm_apply(cfg.norm, p.mlp_norm, x)
-    x = x + L.mlp(ctx, cfg, p.mlp, h)
-    return x, cache
+    if cfg.is_moe:
+        f = L.moe_ffn(ctx, cfg, p.moe, h)
+    else:
+        f = L.mlp(ctx, cfg, p.mlp, h)
+    return x + f, cache
 
 
 def lm_apply(ctx: Ctx, cfg: ArchConfig, params: LM, tokens, positions=None,
@@ -148,8 +162,9 @@ def lm_apply(ctx: Ctx, cfg: ArchConfig, params: LM, tokens, positions=None,
 
     With a contiguous cache (:func:`init_lm_cache`) a decode call
     (``ctx.decode``) places the tokens at ``pos + arange(S)``; a prefill
-    starts at position 0.  ``k``/``v`` are written in place and the
-    returned cache carries each layer's advanced ``pos``.
+    starts at position 0.  ``k``/``v`` (MLA: ``ckv``/``krope``) are
+    written in place and the returned cache carries each layer's advanced
+    ``pos``.
     """
     if tokens.ndim == 2:
         x = params.embed[tokens].to(cfg.adt)
@@ -167,11 +182,13 @@ def lm_apply(ctx: Ctx, cfg: ArchConfig, params: LM, tokens, positions=None,
             positions = torch.arange(s, device=x.device)
 
     new_pos = []
+    stacked = () if cache is None or paged else [
+        name for name in cache if name != "pos"]
     for i, blk in enumerate(params.blocks):
         lc = None
-        if cache is not None and not paged:
-            lc = {"k": cache["k"][i], "v": cache["v"][i],
-                  "pos": int(cache["pos"][i])}
+        if stacked:
+            lc = {name: cache[name][i] for name in stacked}
+            lc["pos"] = int(cache["pos"][i])
         if paged:
             # block tables / seq_lens are batch state shared by every
             # layer — injected here; prefill_lens rides along only during
@@ -193,8 +210,8 @@ def lm_apply(ctx: Ctx, cfg: ArchConfig, params: LM, tokens, positions=None,
                      "block_tables": cache["block_tables"],
                      "seq_lens": cache["seq_lens"]}
     elif cache is not None:
-        new_cache = {"k": cache["k"], "v": cache["v"],
-                     "pos": torch.tensor(new_pos, dtype=torch.int32)}
+        new_cache = {name: cache[name] for name in stacked}
+        new_cache["pos"] = torch.tensor(new_pos, dtype=torch.int32)
     x = norm_apply(cfg.norm, params.final_norm, x)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
     logits = linear(ctx, "lm_head", x, head)
@@ -203,13 +220,22 @@ def lm_apply(ctx: Ctx, cfg: ArchConfig, params: LM, tokens, positions=None,
 
 def init_lm_cache(cfg: ArchConfig, batch: int, seq_len: int,
                   dtype=torch.bfloat16, device=None) -> dict:
-    """The stacked contiguous decode cache of the whole model: ``k`` and
-    ``v`` (L, B, cache_len, KV, hd) zeros on ``device`` and the per-layer
-    ``pos`` (L,) int32 zeros, the JAX package's pytree.  ``pos`` stays a
-    host tensor: positions, write slots and masks derive from it without a
-    device round trip."""
+    """The stacked contiguous decode cache of the whole model, the JAX
+    package's pytree: ``k`` and ``v`` (L, B, cache_len, KV, hd) zeros on
+    ``device`` — with MLA ``ckv`` (L, B, seq_len, kv_lora_rank) and
+    ``krope`` (L, B, seq_len, rope_head_dim) — and the per-layer ``pos``
+    (L,) int32 zeros.  ``pos`` stays a host tensor: positions, write slots
+    and masks derive from it without a device round trip."""
     n = cfg.n_layers
-    shape = (n, batch, L.cache_len_for(cfg, seq_len), cfg.n_kv_heads, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "pos": torch.zeros((n,), dtype=torch.int32)}
+    if cfg.use_mla:
+        cache = {"ckv": torch.zeros((n, batch, seq_len, cfg.kv_lora_rank),
+                                    dtype=dtype, device=device),
+                 "krope": torch.zeros((n, batch, seq_len, cfg.rope_head_dim),
+                                      dtype=dtype, device=device)}
+    else:
+        shape = (n, batch, L.cache_len_for(cfg, seq_len), cfg.n_kv_heads,
+                 cfg.hd)
+        cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                 "v": torch.zeros(shape, dtype=dtype, device=device)}
+    cache["pos"] = torch.zeros((n,), dtype=torch.int32)
+    return cache

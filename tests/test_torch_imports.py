@@ -41,9 +41,12 @@ def test_every_module_imports_without_jax():
     assert int(r.stdout.strip()) >= 71
 
 
+# the last two: atomic floating-point scatters, whose sums change order
+# from run to run on the card (greedy tokens must be bit-reproducible)
 @pytest.mark.parametrize("needle", [
     "import jax", "from repro.", "import repro.", "ml_dtypes",
-    "scaled_dot_product_attention", "torch.compile", "_int_mm"])
+    "scaled_dot_product_attention", "torch.compile", "_int_mm",
+    "index_add_", "scatter_add_"])
 def test_sources_name_no_jax_or_library_kernel(needle):
     hits = [str(f.relative_to(SRC)) for f in sorted(PORT.rglob("*"))
             if f.suffix in (".py", ".cu", ".cuh")
@@ -74,7 +77,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_unported_paths_raise_not_implemented():
-    """What stays unported raises: the MoE/MLA, SSM and hybrid families.
+    """What stays unported raises: the SSM, hybrid and encoder-decoder
+    families.
     The serial admission path, the INT8/FP8 levels and the write-ahead
     journal (a durable plan) are ported and run."""
     from repro_torch.configs.registry import get_config
@@ -97,7 +101,7 @@ def test_unported_paths_raise_not_implemented():
     for level in ("int8", "fp8"):
         y = linear(Ctx(policy=PrecisionPolicy(default=level)), "m", x, w)
         assert torch.equal(y, torch.full((1, 2), 4.0))
-    for arch in ("deepseek_v2_236b", "xlstm_125m", "zamba2_2p7b"):
+    for arch in ("whisper_small", "xlstm_125m", "zamba2_2p7b"):
         with pytest.raises(NotImplementedError):
             build_model(get_config(arch, smoke=True), device="cpu")
 
