@@ -34,7 +34,10 @@ Phases, each printing one JSON line or more:
                chunks, wrapped rings, rows with no live slot), two
                launches bit for bit, and a request's bits unchanged by
                its row, its siblings, its page numbers, the table width
-               and the batch;
+               and the batch; flash_decode also at zamba2-2.7b's shared
+               attention (B 8, H = KV = 32, D = 80, the fp32 CUDA-core
+               variant in bf16 too) and quant_matmul at its MLP (M = 8
+               and 4,096, exactly equal);
 4. cpu_vs_gpu — Qwen2-7B at full width cut to 2 layers in fp32: the port
                on the CPU (plain versions) and on the card (kernels) must
                emit equal greedy tokens — the paged engine through a
@@ -59,7 +62,8 @@ Phases, each printing one JSON line or more:
                sub-rows at phase 12's shapes: the paged pair and
                flash_decode at granite's H = 16 over KV = 8, D = 64,
                quant_matmul at DeepSeek-V2's shared experts (M = 4 and
-               1,024); the
+               1,024); sub-rows at phase 13's: flash_decode at zamba2's
+               D = 80 and quant_matmul at its shared MLP; the
                rows name the variant and tiles (decode: chunk and
                chunks; quant_matmul: splits) that ran, and the decode
                rows split their device time by kernel (torch.profiler);
@@ -135,7 +139,27 @@ Phases, each printing one JSON line or more:
                one set of fp32 weights: granite on 2 layers through the
                paged engine and ``generate``, DeepSeek-V2 on 1 layer
                through ``generate`` under both policies.  Runs before
-               phase 6, whose rows report its launch counts.
+               phase 6, whose rows report its launch counts;
+13. ssm_hybrid — the SSM and hybrid families through contiguous
+               ``generate`` (the paged engine refuses both, in both
+               packages), batch 8, 512-token prompts, 64 new tokens:
+               (a) zamba2-2.7b at full width and depth (54 Mamba2 layers,
+               the weight-shared attention+MLP block after every 6, bf16
+               weights from seed 0) under the bf16 and the int8-mlp
+               policy — flash_decode 9 launches a decode step, all on the
+               fp32 CUDA-core variant at D = 80, quant_matmul 27 a
+               forward under int8-mlp, all "tc" — with each request's
+               recurrent state beside its K/V bytes and a profile of 16
+               decode steps; (b) xlstm-125m at full width and depth (6
+               mLSTM/sLSTM pairs, fp32 weights) under the bf16 policy, no
+               kernel launched, and its profile; (c) for each, a prefill
+               of 511 tokens plus one decode step against the 512-token
+               prefill's last logits: in fp32 within one bf16 ulp of the
+               largest, the served bf16 configuration reported beside;
+               (d) the CPU against the card in fp32 (zamba2 on one
+               segment of 6 layers, xlstm whole), greedy tokens equal on
+               the decided rows.  Runs before phase 6, whose rows report
+               its launch counts.
 
 Then one ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line, and the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises and
@@ -149,10 +173,11 @@ busy share, the admission dispatches' share of device time, the top
 kernels and host ops — and over 16 contiguous decode steps under each
 policy) runs only when asked.
 
-Usage: ``python3 chip_smoke.py [--phases 1,2,3,4,5,6,8,9,10,11,12[,7]]
-[--src DIR]``; ``--phases 1,2,9,10`` builds the kernels and drives the
-SERVE and durability paths alone, ``--phases 1,2,3,11`` the design flow
-with training, ``--phases 1,2,12`` the MoE family.
+Usage: ``python3 chip_smoke.py [--phases
+1,2,3,4,5,6,8,9,10,11,12,13[,7]] [--src DIR]``; ``--phases 1,2,9,10``
+builds the kernels and drives the SERVE and durability paths alone,
+``--phases 1,2,3,11`` the design flow with training, ``--phases 1,2,12``
+the MoE family, ``--phases 1,2,3,13`` the SSM and hybrid families.
 ``--src`` drives the ``repro_torch`` under another tree (e.g. the parent
 commit unpacked beside this one) with this script's phases; with
 ``--phases 1,6`` that times both commits' kernels with the same rows in one
@@ -180,10 +205,12 @@ FP32_TOL = 2e-5                     # as tests/test_paged.py
 MM_FP32_REL = 1e-5                  # fp32 products: of the largest output
 KERNELS = ("flash_decode_paged", "flash_prefill_ragged", "flash_decode",
            "quant_matmul", "block_sparse_matmul", "flash_attention")
-# attention shapes (H, KV, D): Qwen2-7B's (phases 5 and 8) and
-# granite-moe-1b-a400m's (phase 12)
+# attention shapes (H, KV, D): Qwen2-7B's (phases 5 and 8),
+# granite-moe-1b-a400m's (phase 12) and zamba2-2.7b's shared block
+# (phase 13: D = 80, the fp32 CUDA-core variant in bf16 too)
 QWEN_ATTN = (28, 4, 128)
 GRANITE_ATTN = (16, 8, 64)
+ZAMBA_ATTN = (32, 32, 80)
 
 
 def emit(obj: dict) -> None:
@@ -407,8 +434,9 @@ def _contig_masks(cache_len: int) -> list:
 # product at M = 128, K no multiple of 16 (the mma.sync kernel), then the
 # tensor-core kernel's ragged edges: M, N and the last k-block ragged,
 # swapped (M <= 64) and not, with and without a split; then granite's
-# tied lm_head under int8 (N = 49,155, odd) and DeepSeek-V2's shared
-# experts at decode (M = 4) and prefill (M = 1,024)
+# tied lm_head under int8 (N = 49,155, odd), DeepSeek-V2's shared
+# experts at decode (M = 4) and prefill (M = 1,024), and zamba2-2.7b's
+# shared MLP at decode (M = 8) and prefill (M = 4,096)
 QMM_SHAPES = ((8, 3584, 18944), (8, 18944, 3584), (4096, 3584, 18944),
               (4096, 18944, 3584), (3, 56, 40), (5, 100, 17),
               (130, 72, 200), (128, 152064, 3584), (3, 80, 40),
@@ -416,7 +444,8 @@ QMM_SHAPES = ((8, 3584, 18944), (8, 18944, 3584), (4096, 3584, 18944),
               (70, 4112, 300), (200, 512, 520), (512, 16, 64), (512, 32, 5),
               (512, 512, 10), (8, 1024, 49155), (512, 1024, 49155),
               (4, 5120, 3072), (1024, 5120, 3072), (4, 3072, 5120),
-              (1024, 3072, 5120))
+              (1024, 3072, 5120), (8, 2560, 10240), (8, 10240, 2560),
+              (4096, 2560, 10240), (4096, 10240, 2560))
 # the INT8 straight-through product (models/common.py::Int8MatmulSTE) at
 # the bench models' evaluation shapes and a Qwen2-7B training forward
 STE_SHAPES = ((512, 16, 64), (512, 32, 5), (512, 512, 10),
@@ -1030,7 +1059,8 @@ def phase_kernels() -> dict:
         # full-width serving shape; linear and wrapped-ring masks
         shapes = [(3, h, kvh, 8, n) for h, kvh in ((4, 4), (4, 2), (7, 1))
                   for n in (16, 37, 577)] + [(8, *QWEN_ATTN, 577),
-                                             (8, *GRANITE_ATTN, 577)]
+                                             (8, *GRANITE_ATTN, 577),
+                                             (8, *ZAMBA_ATTN, 577)]
         for b, h, kvh, d, n in shapes:
             q, k, v = _contig_inputs(gen, b, n, h, kvh, d, dtype)
             for case, mask in _contig_masks(n):
@@ -1038,6 +1068,9 @@ def phase_kernels() -> dict:
                          fd.flash_decode_plain(q, k, v, mask), dtype, worst,
                          (b, h, kvh, d, n, case))
                 n_cases += 1
+                if d == ZAMBA_ATTN[2] and fd.last_launch["variant"] != "ffma":
+                    raise AssertionError(f"flash_decode at D = {d}: "
+                                         f"{fd.last_launch}, expected ffma")
     qmm_checks = _check_quant_matmul(gen)
     n_qmm = qmm_checks["cases"]
     ste = _check_ste(gen)
@@ -1333,12 +1366,48 @@ def _burst(arch: str, phase: str):
 GENERATE = dict(batch=8, prompt_len=512, gen=64)
 
 
+def _attn_layers(cfg) -> int:
+    """GQA attention layers a forward runs over the contiguous cache (each
+    a flash_decode launch a decode step): none under MLA and in xLSTM,
+    zamba2's shared block once a segment."""
+    if cfg.use_mla or cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.hybrid_period
+    return cfg.n_layers
+
+
 def _mlp_linears(cfg) -> int:
-    """``linear`` calls named ``mlp/…`` in one forward: the dense MLP's, or
-    the MoE layers' shared experts (the routed experts call none)."""
+    """``linear`` calls named ``mlp/…`` in one forward: the dense MLP's,
+    the MoE layers' shared experts (the routed experts call none) or
+    zamba2's shared block's, once a segment; xLSTM's products are named
+    ``mlstm/…`` and ``slstm/…``."""
+    if cfg.family == "ssm":
+        return 0
     if cfg.is_moe:
         return 3 * cfg.n_layers if cfg.n_shared_experts else 0
-    return (3 if cfg.mlp == "glu" else 2) * cfg.n_layers
+    return (3 if cfg.mlp == "glu" else 2) * _attn_layers(cfg)
+
+
+def _state_bytes(cfg, batch: int, seq_len: int) -> dict:
+    """A request's decode state in the contiguous cache (bf16 attention
+    cache): the recurrent states' bytes (fp32) beside the attention K/V
+    bytes at ``seq_len`` slots."""
+    from repro_torch.models import transformer as T
+    cache = T.init_lm_cache(cfg, batch, seq_len, device="meta")
+    out = {"recurrent_state_bytes_per_request": 0,
+           "kv_cache_bytes_per_request": 0}
+
+    def walk(node, key):
+        for name, t in node.items():
+            if isinstance(t, dict):
+                walk(t, "kv_cache_bytes_per_request" if name == "shared"
+                     else key)
+            elif name != "pos":
+                out[key] += t.numel() * t.element_size() // batch
+
+    walk(cache, "recurrent_state_bytes_per_request")
+    return out
 
 
 def phase_generate(cfg, lm, c=GENERATE, policies=("bf16", "int8-mlp"),
@@ -1350,11 +1419,16 @@ def phase_generate(cfg, lm, c=GENERATE, policies=("bf16", "int8-mlp"),
     just before it, read just after.  flash_decode launches a GQA layer
     a decode step (none under MLA, whose decode attention is plain
     PyTorch), quant_matmul each ``mlp/…`` product under int8-mlp.
-    Returns the launches of flash_decode (bf16 run) and quant_matmul
-    (int8-mlp run)."""
+    Under the bf16 policy every flash_decode launch takes the variant
+    ``decode_tc.variant`` gives the model's head dim (the tensor cores at
+    D = 64 and 128, zamba2's D = 80 the fp32 CUDA-core kernel).  For the
+    SSM and hybrid families the run also reports a request's recurrent
+    state beside its attention K/V.  Returns the launches of flash_decode
+    (bf16 run) and quant_matmul (int8-mlp run)."""
     import numpy as np
     import torch
     from repro_torch.data.synthetic import lm_tokens
+    from repro_torch.kernels import decode_tc
     from repro_torch.launch.serve import (generate, make_serve_fns,
                                           serve_policy, timed_generate)
     from repro_torch.models import layers as L
@@ -1363,7 +1437,9 @@ def phase_generate(cfg, lm, c=GENERATE, policies=("bf16", "int8-mlp"),
     prompts = torch.from_numpy(lm_tokens(b * s, cfg.vocab_size, seed=1)
                                .reshape(b, s).astype(np.int32))
     cache_len = s + n_gen + 1
-    n_attn = 0 if cfg.use_mla else cfg.n_layers
+    n_attn = _attn_layers(cfg)
+    decode_tc_variant = decode_tc.variant(torch.bfloat16, torch.bfloat16,
+                                          cfg.hd)
     launches = {}
     for pname in policies:
         int8 = pname == "int8-mlp"
@@ -1389,12 +1465,15 @@ def phase_generate(cfg, lm, c=GENERATE, policies=("bf16", "int8-mlp"),
         if syncs != (cfg.n_layers * n_gen if cfg.is_moe else 0):
             raise AssertionError(f"generate {cfg.name} {pname}: {syncs} "
                                  f"MoE host reads")
-        # bf16 q and cache at D = 64 or 128: every decode step's attention
-        # on the tensor-core variant
-        if not int8 and tc_counts["flash_decode"] != counts["flash_decode"]:
+        # bf16 q and cache: every decode step's attention on the variant
+        # the head dim gives (tensor cores at D = 64 or 128)
+        want_tc = counts["flash_decode"] if decode_tc_variant == "tc" else 0
+        if not int8 and tc_counts["flash_decode"] != want_tc:
             raise AssertionError(f"generate {cfg.name} {pname}: tensor-core "
-                                 f"launches {tc_counts}, expected all "
-                                 f"{counts['flash_decode']} flash_decode")
+                                 f"launches {tc_counts}, expected "
+                                 f"{want_tc} of {counts['flash_decode']} "
+                                 f"flash_decode (D = {cfg.hd}: "
+                                 f"{decode_tc_variant})")
         # K a multiple of 16 (Qwen2-7B 3,584 and 18,944; DeepSeek-V2's
         # shared experts 5,120 and 3,072): every int8 product on the
         # tensor-core variant (prefill unswapped, decode swapped)
@@ -1416,11 +1495,17 @@ def phase_generate(cfg, lm, c=GENERATE, policies=("bf16", "int8-mlp"),
                                                    + cfg.rope_head_dim)
             extra["full_kv_cache_bytes"] = per_slot * cfg.n_heads * (
                 cfg.nope_head_dim + cfg.rope_head_dim + cfg.v_head_dim)
+        if cfg.family in ("ssm", "hybrid"):
+            extra.update(_state_bytes(cfg, b, cache_len))
+        if counts["flash_decode"]:
+            extra["flash_decode_variant"] = decode_tc_variant
         if not any(counts.values()):
-            extra["note"] = ("no kernel of the port runs on this path: MLA "
-                             "attention and the MoE FFN are plain PyTorch "
-                             "products, as they are outside Pallas in the "
-                             "JAX package")
+            extra["note"] = ("no kernel of the port runs on this path: "
+                             + ("the mLSTM and sLSTM mixers"
+                                if cfg.family == "ssm" else
+                                "MLA attention and the MoE FFN")
+                             + " are plain PyTorch products, as they are "
+                             "outside Pallas in the JAX package")
         emit({"phase": phase, "arch": cfg.name, "layers": cfg.n_layers,
               "policy": pname, "dtype": "bfloat16",
               "param_dtype": cfg.param_dtype, **c,
@@ -1570,10 +1655,11 @@ def _families_cpu_vs_gpu() -> None:
 
 
 def _generate_cpu_vs_gpu(cfg, lm_cpu, lm_gpu, pname: str,
-                         prompt_len: int = 32, gen: int = 8) -> dict:
-    """``generate`` (host loop, fp32 cache) of :data:`FAMILIES_CANDIDATES`
-    prompts on both sides under ``pname``; each greedy step's top-2 logit
-    gap is read on the way.  The rows whose every step keeps a gap of
+                         prompt_len: int = 32, gen: int = 8,
+                         candidates: int = FAMILIES_CANDIDATES) -> dict:
+    """``generate`` (host loop, fp32 cache) of ``candidates`` prompts on
+    both sides under ``pname``; each greedy step's top-2 logit gap is
+    read on the way.  The rows whose every step keeps a gap of
     :data:`FAMILIES_GAP` on the CPU must agree (at least two rows)."""
     import numpy as np
     import torch
@@ -1582,7 +1668,7 @@ def _generate_cpu_vs_gpu(cfg, lm_cpu, lm_gpu, pname: str,
     from repro_torch.models.api import build_model
     prompts = torch.from_numpy(np.random.default_rng(PHASE4_PROMPT_SEED)
                                .integers(0, cfg.vocab_size,
-                                         (FAMILIES_CANDIDATES, prompt_len))
+                                         (candidates, prompt_len))
                                .astype(np.int32))
     res, secs = {}, {}
     for side, lm, dev in (("cpu", lm_cpu, "cpu"), ("gpu", lm_gpu, "cuda")):
@@ -1614,12 +1700,145 @@ def _generate_cpu_vs_gpu(cfg, lm_cpu, lm_gpu, pname: str,
             f"{cfg.name} generate {pname}: {n_decided} rows with a top-2 "
             f"gap >= {FAMILIES_GAP}; CPU {res['cpu'][0][decided].tolist()} "
             f"GPU {res['gpu'][0][decided].tolist()}")
-    return {"candidates": FAMILIES_CANDIDATES, "decided_rows": n_decided,
+    return {"candidates": candidates, "decided_rows": n_decided,
             "equal_decided_rows": True,
             "equal_rows_all": int((res["cpu"][0] == res["gpu"][0])
                                   .all(dim=1).sum()),
             "min_gap_decided": float(res["cpu"][1][decided].min()),
             "sample": res["gpu"][0][decided][0].tolist(), "run_s": secs}
+
+
+# ------------------------------------------- phase 13: SSM and hybrid
+# CPU against the card: xlstm-125m's tied head reads a d_model-768
+# embedding (logits of std ~0.55 over 50,304 columns: a greedy step keeps
+# a 0.05 top-2 gap less often than at zamba2's width), so it runs more
+# candidates
+SSM_CPU_LAYERS = {"zamba2_2p7b": 6, "xlstm_125m": 12}
+SSM_CPU_CANDIDATES = {"zamba2_2p7b": 32, "xlstm_125m": 96}
+SSM_POLICIES = {"zamba2_2p7b": ("bf16", "int8-mlp"), "xlstm_125m": ("bf16",)}
+
+
+def phase_ssm_hybrid() -> dict:
+    """The SSM and hybrid families on the card, through contiguous
+    ``generate`` (the paged engine refuses both, as the JAX package's
+    does): (a) zamba2-2.7b at full width and depth (54 Mamba2 layers, the
+    shared attention+MLP block after every 6; bf16 weights from seed 0)
+    under the bf16 and the int8-mlp policy — flash_decode 9 a decode step,
+    all on the fp32 CUDA-core variant at D = 80, quant_matmul 27 a
+    forward under int8-mlp, all "tc" — and a profile of 16 decode steps;
+    (b) xlstm-125m at full width and depth (6 mLSTM/sLSTM pairs, fp32
+    weights) under the bf16 policy, no kernel launched, and its profile;
+    (c) for each, a prefill of 511 tokens and one decode step against the
+    512-token prefill's last logits (:func:`_ssm_handoff`); (d) the CPU
+    against the card in fp32.  fp32 products stay fp32 (no TF32).
+    Returns the kernels' launches on these paths."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.api import build_model
+    if torch.get_float32_matmul_precision() != "highest" \
+            or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("phase 13: TF32 is on for fp32 products")
+    t_phase = time.perf_counter()
+    launches = {}
+    for arch in ("zamba2_2p7b", "xlstm_125m"):
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        lm = build_model(cfg).init(seed=0)
+        torch.cuda.synchronize()
+        emit({"phase": "ssm_hybrid_init", "arch": cfg.name,
+              "layers": cfg.n_layers, "param_dtype": cfg.param_dtype,
+              "params": sum(p.numel() for p in lm.parameters()),
+              "init_s": time.perf_counter() - t0})
+        got = phase_generate(cfg, lm, policies=SSM_POLICIES[arch],
+                             phase="ssm_hybrid_generate")
+        if arch == "zamba2_2p7b":
+            launches.update(got)
+        _profile_generate(cfg, lm, policies=("bf16",),
+                          phase=f"ssm_hybrid_profile_{arch}")
+        _ssm_handoff(cfg, lm)
+        del lm
+        torch.cuda.empty_cache()
+    for arch in ("zamba2_2p7b", "xlstm_125m"):
+        _ssm_cpu_vs_gpu(arch)
+    emit({"phase": "ssm_hybrid_done", "launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+def _ssm_handoff(cfg, lm, s: int = GENERATE["prompt_len"]) -> None:
+    """(c): a prefill of ``s - 1`` tokens and one decode step against the
+    ``s``-token prefill's last logits, on the same bf16 weights: the
+    chunked SSD / mLSTM and the contiguous prefill attention against the
+    recurrent steps and flash_decode.  Held within ``bf16_tol`` in fp32
+    (activations, cache and products), where the two paths differ only
+    in fp32 summation order.  The served configuration (bf16 activations,
+    cache and products) is reported beside it: there the decode path
+    rounds once more (Mamba2's decode casts its SSD output to bf16, the
+    cache holds bf16 K/V where prefill attends the unrounded ones), and
+    on zamba2-smoke the JAX package's own handoff misses ``bf16_tol`` by
+    2x as the port's does."""
+    import numpy as np
+    import torch
+    from repro_torch.data.synthetic import lm_tokens
+    from repro_torch.models.api import build_model
+    from repro_torch.quant.policy import PrecisionPolicy
+    b = GENERATE["batch"]
+    toks = torch.from_numpy(lm_tokens(b * s, cfg.vocab_size, seed=2)
+                            .reshape(b, s).astype(np.int32)).cuda()
+    out = {}
+    for label, act, level, cache_dtype in (
+            ("fp32", "float32", "fp32", torch.float32),
+            ("served", cfg.act_dtype, "bf16", torch.bfloat16)):
+        model = build_model(cfg.replace(act_dtype=act),
+                            PrecisionPolicy(default=level))
+        full, _ = model.prefill(lm, {"tokens": toks},
+                                model.init_cache(b, s, cache_dtype))
+        _, cache = model.prefill(lm, {"tokens": toks[:, :-1]},
+                                 model.init_cache(b, s, cache_dtype))
+        step, _ = model.decode_step(lm, cache, toks[:, -1:])
+        ref = full[:, -1].float()
+        err = float((step[:, -1].float() - ref).abs().max())
+        out[label] = {"max_abs_err": err, "tol": bf16_tol(ref),
+                      "max_abs_logit": float(ref.abs().max()),
+                      "argmax_equal_rows": int((step[:, -1].argmax(-1)
+                                                == ref.argmax(-1)).sum())}
+        del model, full, cache, step
+    err, tol = out["fp32"]["max_abs_err"], out["fp32"]["tol"]
+    if not (math.isfinite(err) and err <= tol):
+        raise AssertionError(f"{cfg.name} handoff in fp32: prefill({s - 1}) "
+                             f"+ one decode step vs prefill({s}): {err} > "
+                             f"{tol}")
+    emit({"phase": "ssm_hybrid_handoff", "arch": cfg.name, "batch": b,
+          "prompt_len": s, **out})
+
+
+def _ssm_cpu_vs_gpu(arch: str) -> None:
+    """(d): the port on the CPU (plain versions) and on the card (kernels)
+    from one set of fp32 weights drawn on the card: zamba2 at full width
+    cut to one segment (6 Mamba2 layers and the shared block), xlstm-125m
+    whole, through ``generate`` (fp32 activations and cache) under each
+    of its policies."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.quant.policy import PrecisionPolicy
+    cfg = get_config(arch).replace(n_layers=SSM_CPU_LAYERS[arch],
+                                   param_dtype="float32",
+                                   act_dtype="float32")
+    policy = PrecisionPolicy(default="fp32")
+    t0 = time.perf_counter()
+    lm_gpu = build_model(cfg, policy, device="cuda").init(seed=0)
+    lm_cpu = build_model(cfg, policy, device="cpu").empty_params()
+    lm_cpu.load_state_dict(lm_gpu.state_dict())
+    out = {"init_s": time.perf_counter() - t0}
+    out["generate"] = {
+        p: _generate_cpu_vs_gpu(cfg, lm_cpu, lm_gpu, p,
+                                candidates=SSM_CPU_CANDIDATES[arch])
+        for p in SSM_POLICIES[arch]}
+    emit({"phase": "ssm_hybrid_cpu_vs_gpu", "arch": cfg.name,
+          "layers": cfg.n_layers, "dtype": "float32", **out})
+    del lm_gpu, lm_cpu
+    torch.cuda.empty_cache()
 
 
 def _block_masks_task():
@@ -2737,10 +2956,12 @@ def _profile_generate(cfg, lm, c=GENERATE, policies=("bf16", "int8-mlp"),
             fns.decode_scan(lm, cache, tok, steps)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+        summary = _profile_summary(prof, wall, f"{phase}_{pname}.txt")
         emit({"phase": phase, "arch": cfg.name, "policy": pname,
               "batch": b, "prompt_len": s, "decode_steps": steps,
               "wall_s": wall, "decode_step_ms": 1e3 * wall / steps,
-              **_profile_summary(prof, wall, f"{phase}_{pname}.txt")})
+              "device_events_per_step": summary["device_events"] / steps,
+              **summary})
         del fns, model, cache, logits
         torch.cuda.empty_cache()
 
@@ -2795,11 +3016,12 @@ def _device_ms_by_kernel(fn, flush, reps: int = 20,
             and e.count == reps and match in e.key}
 
 
-def phase_timing(launches: dict, families: dict) -> list:
+def phase_timing(launches: dict, families: dict, hybrid: dict) -> list:
     """Kernel rows at the phase-5 shapes (``launches``: phases 5 and 8),
     with sub-rows at granite-moe-1b-a400m's burst and ``generate``
     shapes and DeepSeek-V2's shared experts (``families``: phase 12's
-    launches)."""
+    launches), and at zamba2-2.7b's shared block (``hybrid``: phase 13's
+    launches): flash_decode at D = 80 and quant_matmul at its MLP."""
     import torch
     c = SERVE
     gen = torch.Generator().manual_seed(2)
@@ -2829,8 +3051,10 @@ def phase_timing(launches: dict, families: dict) -> list:
     row = _flash_decode_row(gen, launches, flush, sdpa_gqa, QWEN_ATTN)
     sub = _flash_decode_row(gen, families, flush, sdpa_gqa, GRANITE_ATTN)
     row["granite"] = {key: sub[key] for key in SUB_ROW_KEYS + ("launches",)}
+    sub = _flash_decode_row(gen, hybrid, flush, sdpa_gqa, ZAMBA_ATTN)
+    row["zamba2"] = {key: sub[key] for key in SUB_ROW_KEYS + ("launches",)}
     rows.append(row)
-    rows.append(_quant_matmul_row(gen, launches, flush, families))
+    rows.append(_quant_matmul_row(gen, launches, flush, families, hybrid))
     rows.append(_block_sparse_row(launches, flush))
     rows.append(_flash_attention_row(launches, flush, sdpa_gqa))
     emit({"phase": "timing", "kernels": rows})
@@ -3097,16 +3321,23 @@ QMM_FAMILY_ROWS = (("dsv2_up_4", 4, 5120, 3072),
                    ("dsv2_up_1024", 1024, 5120, 3072),
                    ("dsv2_down_4", 4, 3072, 5120),
                    ("dsv2_down_1024", 1024, 3072, 5120))
+# zamba2-2.7b's shared MLP (phase 13, int8-mlp): gate/up and down at
+# decode (M = 8) and prefill (M = 4,096)
+QMM_HYBRID_ROWS = (("zamba2_up_8", 8, 2560, 10240),
+                   ("zamba2_up_4096", 4096, 2560, 10240),
+                   ("zamba2_down_8", 8, 10240, 2560),
+                   ("zamba2_down_4096", 4096, 10240, 2560))
 QMM_SUB_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "library_note", "quantize_ms", "wrapper_ms", "max_abs_err",
                 "shapes", "variant", "tiles", "swap", "splits",
                 "device_ms_by_kernel", "launches")
 
 
-def _quant_matmul_row(gen, launches, flush, families) -> dict:
+def _quant_matmul_row(gen, launches, flush, families, hybrid) -> dict:
     """The int8 product on operands already quantized, at each shape of
-    :data:`QMM_ROWS` and :data:`QMM_FAMILY_ROWS` (their ``launches`` from
-    phase 12's ``families``), with the variant, tiles and splits that ran,
+    :data:`QMM_ROWS`, :data:`QMM_FAMILY_ROWS` (their ``launches`` from
+    phase 12's ``families``) and :data:`QMM_HYBRID_ROWS` (phase 13's
+    ``hybrid``), with the variant, tiles and splits that ran,
     and the weight quantization that every call also pays
     (``quantize_ms``) and the whole wrapper (``wrapper_ms``) timed beside
     it.  Library:
@@ -3115,8 +3346,9 @@ def _quant_matmul_row(gen, launches, flush, families) -> dict:
     import torch
     from repro_torch.kernels import quant_matmul as qmm
     row = None
-    for label, m, k, n in QMM_ROWS + QMM_FAMILY_ROWS:
-        counts = families if label.startswith("dsv2") else launches
+    for label, m, k, n in QMM_ROWS + QMM_FAMILY_ROWS + QMM_HYBRID_ROWS:
+        counts = {"dsv2": families, "zamba2": hybrid}.get(
+            label.split("_")[0], launches)
         x = torch.randn((m, k), generator=gen).to(torch.bfloat16).cuda()
         w = (0.02 * torch.randn((k, n), generator=gen)).to(
             torch.bfloat16).cuda()
@@ -3180,7 +3412,7 @@ def _row(name, source, replaces, launches, err, tol, kernel, plain, lib,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,8,9,10,11,12",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,8,9,10,11,12,13",
                     help="comma-separated phases to run (default: all "
                          "but 7)")
     ap.add_argument("--src", default=str(ROOT / "src"),
@@ -3224,6 +3456,7 @@ def main(argv=None) -> int:
     tune_launches = phase_tune() if 8 in phases else {}
     designflow_launches = phase_designflow() if 11 in phases else {}
     families_launches = phase_families() if 12 in phases else {}
+    hybrid_launches = phase_ssm_hybrid() if 13 in phases else {}
     flow_launches, durable_launches = {}, {}
     if 9 in phases or 10 in phases:
         model = params = None
@@ -3238,13 +3471,15 @@ def main(argv=None) -> int:
     # block_sparse_matmul and flash_attention run on phase 8's path only
     for name in ("block_sparse_matmul", "flash_attention"):
         launches[name] = tune_launches.get(name, 0)
-    rows = phase_timing(launches, families_launches) if 6 in phases else []
+    rows = (phase_timing(launches, families_launches, hybrid_launches)
+            if 6 in phases else [])
     for row in rows:
         row["tune_launches"] = tune_launches.get(row["name"], 0)
         row["serveflow_launches"] = flow_launches.get(row["name"], 0)
         row["durable_launches"] = durable_launches.get(row["name"], 0)
         row["designflow_launches"] = designflow_launches.get(row["name"], 0)
         row["families_launches"] = families_launches.get(row["name"], 0)
+        row["ssm_hybrid_launches"] = hybrid_launches.get(row["name"], 0)
     if 7 in phases:
         phase_profile()
     emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 3)})

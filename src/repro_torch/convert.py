@@ -1,16 +1,23 @@
 """Move JAX-package parameters and cache state into the port.
 
-:func:`params_from_jax` takes the JAX parameter pytree of a dense LM
-(``repro.models.transformer.init_lm``) with numpy leaves and returns the
-port's ``state_dict``: nested keys join with ``.``, and the stacked
-``blocks`` axis splits into ``blocks.{i}.…`` (dense and MoE blocks,
-GQA or MLA attention alike).  :func:`cache_from_jax` takes a contiguous
-decode cache (``init_lm_cache``'s ``k``, ``v``, ``pos`` — MLA's ``ckv``,
-``krope``, ``pos`` — or one layer's).  :func:`bench_params_from_jax` takes the
-parameters of a bench model (``models/cnn.py``: ``{"fc0": {"w", "b"}}``,
-``{"conv0": {"w", "bn": {...}}}``) and keeps their nesting.  bf16 leaves
-are read through their 16-bit patterns, so no bf16 numpy dtype is needed
-here.
+:func:`params_from_jax` takes the JAX parameter pytree of a decoder-only
+LM (``repro.models.transformer.init_lm``) with numpy leaves and returns
+the port's ``state_dict``: nested keys join with ``.``, and the stacked
+``blocks`` axis splits into ``blocks.{i}.…`` (dense and MoE blocks, GQA
+or MLA attention; xLSTM's ``(mLSTM, sLSTM)`` pairs; zamba2's Mamba2
+blocks), while zamba2's unstacked ``shared`` subtree keeps its nesting
+(``shared.attn.wq``).  :func:`cache_from_jax` takes a contiguous decode
+cache (``init_lm_cache``'s, or one layer's), nested dicts included:
+
+- dense: ``{"k", "v", "pos"}``; MLA: ``{"ckv", "krope", "pos"}``;
+- xLSTM: ``{"blocks": {"mlstm": {"conv", "C", "n", "m"}, "slstm": {"h",
+  "c", "n", "m"}}, "pos": ()}``;
+- zamba2: ``{"mamba": {"conv", "ssd"}, "shared": {"k", "v", "pos"}}``.
+
+:func:`bench_params_from_jax` takes the parameters of a bench model
+(``models/cnn.py``: ``{"fc0": {"w", "b"}}``, ``{"conv0": {"w", "bn":
+{...}}}``) and keeps their nesting.  bf16 leaves are read through their
+16-bit patterns, so no bf16 numpy dtype is needed here.
 """
 
 from __future__ import annotations
@@ -56,14 +63,20 @@ def bench_params_from_jax(tree):
     return _tensor(np.asarray(tree))
 
 
-def cache_from_jax(tree) -> dict[str, torch.Tensor | int]:
-    """JAX contiguous cache (``{"k", "v", "pos"}``, or MLA's ``{"ckv",
-    "krope", "pos"}``) with numpy leaves -> the port's cache (CPU
-    tensors): the stacked model cache keeps ``pos`` as an (L,) int32
-    tensor, one layer's cache as a Python int."""
-    out = {name: _tensor(np.asarray(leaf)) for name, leaf in tree.items()
-           if name != "pos"}
-    pos = np.asarray(tree["pos"])
-    out["pos"] = int(pos) if pos.ndim == 0 else _tensor(
-        pos.astype(np.int32))
+def cache_from_jax(tree) -> dict:
+    """JAX contiguous cache (nested dicts with numpy leaves) -> the port's
+    cache (CPU tensors, the same nesting): a stacked ``pos`` stays an
+    int32 tensor ((L,), or zamba2's one per shared-attention
+    application), a scalar one (one layer's, xLSTM's) becomes a Python
+    int."""
+    out = {}
+    for name, leaf in tree.items():
+        if isinstance(leaf, dict):
+            out[name] = cache_from_jax(leaf)
+        elif name == "pos":
+            pos = np.asarray(leaf)
+            out[name] = int(pos) if pos.ndim == 0 else _tensor(
+                pos.astype(np.int32))
+        else:
+            out[name] = _tensor(np.asarray(leaf))
     return out

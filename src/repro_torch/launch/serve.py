@@ -5,20 +5,28 @@ cache.
         [--int8] [--batch 4 --prompt-len 32 --gen 16] [--no-scan] \\
         [--device cpu --smoke]
 
-``--arch`` takes any config the port builds: the dense ones and the MoE
+``--arch`` takes any config the port builds: the dense ones, the MoE
 family (``granite_moe_1b_a400m``; ``deepseek_v2_236b``, whose MLA cache
-holds the compressed ``ckv``/``krope``).
+holds the compressed ``ckv``/``krope``), the SSM family
+(``xlstm_125m``: mLSTM/sLSTM pairs, a recurrent state of one size at any
+context) and the hybrid one (``zamba2_2p7b``: Mamba2 blocks and one
+weight-shared attention+MLP block every ``hybrid_period`` layers).
 
 One prefill fills the cache, then ``--gen`` greedy tokens are generated
 (the first from the prefill's logits).  On the card the decode attention
 runs the flash_decode kernel (MLA's is plain PyTorch, as in the JAX
-package) and, under ``--int8`` (the int8-mlp policy of the JAX package's
-``examples/serve_lm.py``: ``*mlp*`` → int8), the MLP products (in an MoE
-model the shared experts') run the quant_matmul kernel; there is no
-switch to turn the kernels off.  The default decode loop keeps the greedy tokens on the
-device and reads them back once (the counterpart of the JAX package's
-``lax.scan``); ``--no-scan`` reads every token back to the host before
-the next step.  Both give the same tokens.
+package; zamba2's shared block takes it at head_dim 80, on the fp32
+CUDA-core variant) and, under ``--int8`` (the int8-mlp policy of the JAX
+package's ``examples/serve_lm.py``: ``*mlp*`` → int8), the MLP products
+run the quant_matmul kernel: in an MoE model the shared experts', in
+zamba2 the shared block's ``mlp/w_*``; xLSTM's products are named
+``mlstm/…`` and ``slstm/…``, so the rule matches none of them and
+``--int8`` changes nothing there.  The SSM mixers are plain PyTorch, as
+they are outside any Pallas kernel in the JAX package.  There is no
+switch to turn the kernels off.  The default decode loop keeps the
+greedy tokens on the device and reads them back once (the counterpart of
+the JAX package's ``lax.scan``); ``--no-scan`` reads every token back to
+the host before the next step.  Both give the same tokens.
 
 Timing: a warm-up pass runs first (it builds the kernels), and prefill is
 timed apart from decode — ``prefill_s`` and ``decode_tokens_per_s`` are

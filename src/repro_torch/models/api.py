@@ -1,5 +1,6 @@
-"""Model protocol: one handle over the ported model families (dense and
-MoE decoders, GQA or MLA attention).
+"""Model protocol: one handle over the ported model families (the
+decoder-only ones: dense and MoE with GQA or MLA attention, xLSTM's SSM
+and zamba2's hybrid).
 
 ``build_model(cfg, policy, device=...)`` returns an :class:`LMModel`
 exposing ``init(seed)`` (randomly initialised parameters),
@@ -98,7 +99,8 @@ class LMModel:
     def init_cache(self, batch: int, seq_len: int,
                    dtype: torch.dtype = torch.bfloat16) -> dict:
         """The contiguous decode cache (:func:`transformer.init_lm_cache`)
-        on the model's device."""
+        on the model's device; ``dtype`` reaches the attention caches,
+        never the SSM families' recurrent states (fp32)."""
         return T.init_lm_cache(self.cfg, batch, seq_len, dtype, self.device)
 
     @torch.no_grad()

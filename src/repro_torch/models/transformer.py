@@ -1,18 +1,29 @@
-"""Model assembly: decoder-only LMs of the dense and MoE families.
+"""Model assembly: decoder-only LMs of the dense, MoE, SSM and hybrid
+families.
 
-Block: ``[attn_norm → attn → +res, mlp_norm → mlp → +res] × L``; in the
-``moe`` family the MoE FFN (``moe``) takes the MLP's place, and with
-``cfg.use_mla`` the attention is MLA.  The JAX package stacks the block
-parameters on a leading layer axis and scans over them; here the blocks
-are an ``nn.ModuleList`` walked by a Python loop.  Every decode cache
-keeps one stacked tensor per cached quantity — the paged pool ``(L, P,
-ps, KV, D)``, the contiguous cache ``(L, B, S, KV, D)`` and MLA's
-compressed ``ckv`` (L, B, S, kv_lora) and ``krope`` (L, B, S, rope) —
-and layer ``l`` receives the view ``stack[l]``, so the layers' in-place
-writes land in the stack (and the engine can swap pages out as
-``pool[:, pages]``).
+Block taxonomy (``cfg.family``), as the JAX package's:
 
-The SSM, hybrid and encoder-decoder families are not ported yet.
+- dense | vlm : ``[attn_norm → attn → +res, mlp_norm → mlp → +res] × L``;
+- moe         : the same with the MoE FFN (``moe``) in the MLP's place,
+                and MLA attention with ``cfg.use_mla``;
+- ssm (xLSTM) : ``[norm_m → mLSTM → +res, norm_s → sLSTM (+ its FFN) →
+                +res] × L/2`` (:class:`XLSTMBlock`);
+- hybrid      : segments of ``hybrid_period`` Mamba2 blocks
+                (:class:`MambaBlock`), each followed by the ONE
+                weight-shared attention+MLP block ``shared`` (zamba2).
+
+The JAX package stacks the block parameters on a leading layer axis and
+scans over them; here the blocks are an ``nn.ModuleList`` walked by a
+Python loop.  Every decode cache keeps one stacked tensor per cached
+quantity — the paged pool ``(L, P, ps, KV, D)``, the contiguous cache
+``(L, B, S, KV, D)``, MLA's compressed ``ckv`` (L, B, S, kv_lora) and
+``krope`` (L, B, S, rope), the recurrent states ``(L, B, ...)`` of the
+SSM mixers and zamba2's shared-attention cache, stacked once per
+application ``(L / period, B, S, KV, D)`` — and layer ``l`` receives the
+view ``stack[l]``, so the layers' in-place writes land in the stack (and
+the engine can swap pages out as ``pool[:, pages]``).
+
+The encoder-decoder family is not ported yet.
 """
 
 from __future__ import annotations
@@ -22,18 +33,18 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models.common import (Ctx, Norm, dense_init, embed_init,
                                        linear, norm_apply)
 
 
 def check_ported(cfg: ArchConfig) -> None:
-    """Refuse the families this port does not build yet: SSM, hybrid and
-    encoder-decoder."""
-    if (cfg.family not in ("dense", "vlm", "moe") or cfg.enc_dec
-            or cfg.hybrid_period):
+    """Refuse the family this port does not build yet: encoder-decoder."""
+    if cfg.enc_dec or cfg.family not in ("dense", "vlm", "moe", "ssm",
+                                         "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: family={cfg.family} is not ported yet; this port "
-            f"covers dense and MoE decoders (GQA or MLA attention)")
+            f"covers the decoder-only families (dense, MoE, SSM, hybrid)")
 
 
 def padded_vocab(cfg: ArchConfig) -> int:
@@ -56,12 +67,37 @@ class Block(nn.Module):
             self.mlp = L.MLP(cfg, device, gen)
 
 
+class XLSTMBlock(nn.Module):
+    """One xLSTM double block: an mLSTM block and an sLSTM block."""
+
+    def __init__(self, cfg: ArchConfig, device=None,
+                 gen: torch.Generator | None = None):
+        super().__init__()
+        self.norm_m = Norm(cfg.norm, cfg.d_model, cfg.pdt, device)
+        self.mlstm = S.MLSTM(cfg, device, gen)
+        self.norm_s = Norm(cfg.norm, cfg.d_model, cfg.pdt, device)
+        self.slstm = S.SLSTM(cfg, device, gen)
+
+
+class MambaBlock(nn.Module):
+    def __init__(self, cfg: ArchConfig, device=None,
+                 gen: torch.Generator | None = None):
+        super().__init__()
+        self.norm = Norm(cfg.norm, cfg.d_model, cfg.pdt, device)
+        self.mixer = S.Mamba2(cfg, device, gen)
+
+
 class LM(nn.Module):
     """Parameters of a decoder-only LM, named as the JAX package's pytree
     (``embed``, ``blocks.{i}.attn.wq``, ``blocks.{i}.moe.w_gate``,
-    ``final_norm.scale``, ``lm_head``).  With a generator every weight is drawn in init order;
-    without one the module is allocated uninitialised for
-    ``load_state_dict``."""
+    ``blocks.{i}.mlstm.w_up``, ``blocks.{i}.mixer.in_proj``,
+    ``shared.attn.wq``, ``final_norm.scale``, ``lm_head``).  ``blocks``
+    holds ``n_layers // 2`` :class:`XLSTMBlock` pairs for the ``ssm``
+    family, ``n_layers`` :class:`MambaBlock` for ``hybrid`` (which also
+    gets zamba2's one weight-shared attention+MLP block ``shared``, a
+    dense :class:`Block`), and ``n_layers`` :class:`Block` otherwise.
+    With a generator every weight is drawn in init order; without one
+    the module is allocated uninitialised for ``load_state_dict``."""
 
     def __init__(self, cfg: ArchConfig, device=None,
                  gen: torch.Generator | None = None):
@@ -72,8 +108,17 @@ class LM(nn.Module):
                else torch.empty((vp, cfg.d_model), dtype=cfg.pdt,
                                 device=device))
         self.embed = L._param(emb)
-        self.blocks = nn.ModuleList(Block(cfg, device, gen)
-                                    for _ in range(cfg.n_layers))
+        if cfg.family == "ssm":
+            blocks = (XLSTMBlock(cfg, device, gen)
+                      for _ in range(cfg.n_layers // 2))
+        elif cfg.family == "hybrid":
+            blocks = (MambaBlock(cfg, device, gen)
+                      for _ in range(cfg.n_layers))
+        else:
+            blocks = (Block(cfg, device, gen) for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(blocks)
+        if cfg.family == "hybrid":
+            self.shared = Block(cfg, device, gen)
         self.final_norm = Norm(cfg.norm, cfg.d_model, cfg.pdt, device)
         if not cfg.tie_embeddings:
             head = (dense_init(gen, cfg.d_model, vp, cfg.pdt)
@@ -85,40 +130,50 @@ class LM(nn.Module):
 
     def param_tree(self, per_block: bool = False) -> dict:
         """The JAX package's parameter pytree of this model, in its order
-        (``embed``, ``blocks``, ``final_norm``, ``lm_head``), for the design
-        flow's path-keyed view (``sparsity/masks.py::flatten_params``).
+        (``embed``, ``blocks``, ``shared``, ``final_norm``, ``lm_head``),
+        for the design flow's path-keyed view
+        (``sparsity/masks.py::flatten_params``).
         ``blocks`` holds one stacked leaf per block parameter, (L, ...) in
         the JAX layout and keys sorted as the JAX stack sorts them.  A
         stacked matrix is a shape-only ``meta`` tensor, so the view copies
         no weight; the design flow reads only the shape of a 3-D leaf.  A
         stacked vector (biases, norm scales: L x d, a few hundred KB) is
         a real copy, since it is 2-D there and may be pruned like any
-        2-D weight.  The other leaves are this module's own parameters.
+        2-D weight.  The other leaves are this module's own parameters,
+        zamba2's unstacked ``shared`` block among them.
 
         With ``per_block`` each stacked leaf is instead the list of the
         blocks' own parameters, in layer order: the tree that training
         differentiates and updates (``optim/optimizers.py``)."""
         stacked: dict = {}
-        names = [name for name, _ in self.blocks[0].named_parameters()]
-        for name in names:
-            node = stacked
-            *parents, leaf = name.split(".")
-            for part in parents:
-                node = node.setdefault(part, {})
+        for name, _ in self.blocks[0].named_parameters():
             layers = [blk.get_parameter(name) for blk in self.blocks]
             t = layers[0]
             if per_block:
-                node[leaf] = layers
+                leaf = layers
             elif t.ndim == 1:
-                node[leaf] = torch.stack([p.detach() for p in layers])
+                leaf = torch.stack([p.detach() for p in layers])
             else:
-                node[leaf] = torch.empty((len(layers), *t.shape),
-                                         dtype=t.dtype, device="meta")
-        tree = {"embed": self.embed, "blocks": _sorted_tree(stacked),
-                "final_norm": dict(self.final_norm.named_parameters())}
+                leaf = torch.empty((len(layers), *t.shape), dtype=t.dtype,
+                                   device="meta")
+            _put(stacked, name, leaf)
+        tree = {"embed": self.embed, "blocks": _sorted_tree(stacked)}
+        if hasattr(self, "shared"):
+            tree["shared"] = {}
+            for name, t in self.shared.named_parameters():
+                _put(tree["shared"], name, t)
+        tree["final_norm"] = dict(self.final_norm.named_parameters())
         if hasattr(self, "lm_head"):
             tree["lm_head"] = self.lm_head
         return tree
+
+
+def _put(tree: dict, name: str, leaf) -> None:
+    """``tree[a][b][c] = leaf`` for the dotted ``name`` ``a.b.c``."""
+    *parents, last = name.split(".")
+    for part in parents:
+        tree = tree.setdefault(part, {})
+    tree[last] = leaf
 
 
 def _sorted_tree(node: dict) -> dict:
@@ -147,6 +202,80 @@ def lm_block_apply(ctx: Ctx, cfg: ArchConfig, p: Block, x, positions,
     return x + f, cache
 
 
+def xlstm_block_apply(ctx: Ctx, cfg: ArchConfig, p: XLSTMBlock, x,
+                      positions, cache):
+    """mLSTM then sLSTM, each pre-normed with a residual; ``cache`` is the
+    pair's ``{"mlstm": …, "slstm": …}`` state, updated in place."""
+    mc = cache["mlstm"] if cache is not None else None
+    sc = cache["slstm"] if cache is not None else None
+    y, _ = S.mlstm_apply(ctx, cfg, p.mlstm, norm_apply(cfg.norm, p.norm_m, x),
+                         mc)
+    x = x + y
+    y, _ = S.slstm_apply(ctx, cfg, p.slstm, norm_apply(cfg.norm, p.norm_s, x),
+                         sc)
+    return x + y, cache
+
+
+def mamba_block_apply(ctx: Ctx, cfg: ArchConfig, p: MambaBlock, x,
+                      positions, cache):
+    y, cache = S.mamba2_apply(ctx, cfg, p.mixer,
+                              norm_apply(cfg.norm, p.norm, x), cache)
+    return x + y, cache
+
+
+def _layer(tree: dict, i: int) -> dict:
+    """Layer ``i``'s views ``t[i]`` of a nested dict of stacked states."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def _attention_layer(cache: dict, i: int) -> dict:
+    """Layer ``i`` of a stacked contiguous attention cache: views of its
+    ``k``/``v`` (MLA: ``ckv``/``krope``) and its ``pos`` as an int."""
+    lc = {name: t[i] for name, t in cache.items() if name != "pos"}
+    lc["pos"] = int(cache["pos"][i])
+    return lc
+
+
+def _with_pos(cache: dict, new_pos: list) -> dict:
+    return dict(cache, pos=torch.tensor(new_pos, dtype=torch.int32))
+
+
+def _cache_pos(cfg: ArchConfig, cache: dict) -> int:
+    """The current absolute position of a contiguous cache: xLSTM's one
+    ``pos``, the first shared-attention application's under hybrid, the
+    first layer's otherwise."""
+    if cfg.family == "ssm":
+        return int(cache["pos"])
+    if cfg.family == "hybrid":
+        return int(cache["shared"]["pos"][0])
+    return int(cache["pos"][0])
+
+
+def _hybrid_stack(ctx: Ctx, cfg: ArchConfig, params: LM, x, positions,
+                  cache):
+    """zamba2: the Mamba2 blocks in segments of ``hybrid_period``, each
+    segment followed by the one weight-shared attention+MLP block with
+    the cache of that application (``cache["shared"]`` stacks one per
+    segment).  Returns (x, cache)."""
+    period = cfg.hybrid_period
+    new_pos = []
+    for i, blk in enumerate(params.blocks):
+        lc = None if cache is None else _layer(cache["mamba"], i)
+        x, _ = mamba_block_apply(ctx, cfg, blk, x, positions, lc)
+        if (i + 1) % period:
+            continue
+        sc = None if cache is None else _attention_layer(cache["shared"],
+                                                         i // period)
+        x, sc = lm_block_apply(ctx, cfg, params.shared, x, positions, sc)
+        if sc is not None:
+            new_pos.append(sc["pos"])
+    if cache is None:
+        return x, None
+    return x, {"mamba": cache["mamba"],
+               "shared": _with_pos(cache["shared"], new_pos)}
+
+
 def lm_apply(ctx: Ctx, cfg: ArchConfig, params: LM, tokens, positions=None,
              cache=None):
     """tokens: int (B,S) — or float (B,S,D) pre-embedded.
@@ -161,10 +290,12 @@ def lm_apply(ctx: Ctx, cfg: ArchConfig, params: LM, tokens, positions=None,
     holds the same tensors.
 
     With a contiguous cache (:func:`init_lm_cache`) a decode call
-    (``ctx.decode``) places the tokens at ``pos + arange(S)``; a prefill
-    starts at position 0.  ``k``/``v`` (MLA: ``ckv``/``krope``) are
-    written in place and the returned cache carries each layer's advanced
-    ``pos``.
+    (``ctx.decode``) places the tokens at ``pos + arange(S)``
+    (:func:`_cache_pos`); a prefill starts at position 0.  ``k``/``v``
+    (MLA: ``ckv``/``krope``) and the recurrent states are written in
+    place, and the returned cache carries the advanced ``pos``: each
+    attention layer's (each shared-attention application's under
+    hybrid), or xLSTM's one ``pos`` plus S.
     """
     if tokens.ndim == 2:
         x = params.embed[tokens].to(cfg.adt)
@@ -176,57 +307,60 @@ def lm_apply(ctx: Ctx, cfg: ArchConfig, params: LM, tokens, positions=None,
         if paged and ctx.decode:
             positions = L.ragged_prefill_positions(cache["seq_lens"], s)
         elif cache is not None and ctx.decode:
-            positions = int(cache["pos"][0]) + torch.arange(s,
-                                                            device=x.device)
+            positions = _cache_pos(cfg, cache) + torch.arange(
+                s, device=x.device)
         else:
             positions = torch.arange(s, device=x.device)
 
-    new_pos = []
-    stacked = () if cache is None or paged else [
-        name for name in cache if name != "pos"]
-    for i, blk in enumerate(params.blocks):
-        lc = None
-        if stacked:
-            lc = {name: cache[name][i] for name in stacked}
-            lc["pos"] = int(cache["pos"][i])
+    if cfg.family == "hybrid":
+        x, new_cache = _hybrid_stack(ctx, cfg, params, x, positions, cache)
+    elif cfg.family == "ssm":
+        for i, blk in enumerate(params.blocks):
+            lc = None if cache is None else _layer(cache["blocks"], i)
+            x, _ = xlstm_block_apply(ctx, cfg, blk, x, positions, lc)
+        new_cache = None if cache is None else {
+            "blocks": cache["blocks"], "pos": int(cache["pos"]) + s}
+    else:
+        new_pos = []
+        for i, blk in enumerate(params.blocks):
+            lc = None
+            if paged:
+                # block tables / seq_lens are batch state shared by every
+                # layer — injected here; prefill_lens rides along only
+                # during a batched ragged admission dispatch, and its
+                # presence routes layers.attention to the ragged-prefill
+                # branch
+                lc = {"k_pages": cache["blocks"]["k_pages"][i],
+                      "v_pages": cache["blocks"]["v_pages"][i],
+                      "block_tables": cache["block_tables"],
+                      "seq_lens": cache["seq_lens"]}
+                if "prefill_lens" in cache:
+                    lc["prefill_lens"] = cache["prefill_lens"]
+            elif cache is not None:
+                lc = _attention_layer(cache, i)
+            x, lc = lm_block_apply(ctx, cfg, blk, x, positions, lc)
+            if lc is not None and not paged:
+                new_pos.append(lc["pos"])
+        new_cache = None
         if paged:
-            # block tables / seq_lens are batch state shared by every
-            # layer — injected here; prefill_lens rides along only during
-            # a batched ragged admission dispatch, and its presence routes
-            # layers.attention to the ragged-prefill branch
-            lc = {"k_pages": cache["blocks"]["k_pages"][i],
-                  "v_pages": cache["blocks"]["v_pages"][i],
-                  "block_tables": cache["block_tables"],
-                  "seq_lens": cache["seq_lens"]}
-            if "prefill_lens" in cache:
-                lc["prefill_lens"] = cache["prefill_lens"]
-        x, lc = lm_block_apply(ctx, cfg, blk, x, positions, lc)
-        if lc is not None and not paged:
-            new_pos.append(lc["pos"])
-
-    new_cache = None
-    if paged:
-        new_cache = {"blocks": cache["blocks"],
-                     "block_tables": cache["block_tables"],
-                     "seq_lens": cache["seq_lens"]}
-    elif cache is not None:
-        new_cache = {name: cache[name] for name in stacked}
-        new_cache["pos"] = torch.tensor(new_pos, dtype=torch.int32)
+            new_cache = {"blocks": cache["blocks"],
+                         "block_tables": cache["block_tables"],
+                         "seq_lens": cache["seq_lens"]}
+        elif cache is not None:
+            new_cache = _with_pos(cache, new_pos)
     x = norm_apply(cfg.norm, params.final_norm, x)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
     logits = linear(ctx, "lm_head", x, head)
     return logits, new_cache
 
 
-def init_lm_cache(cfg: ArchConfig, batch: int, seq_len: int,
-                  dtype=torch.bfloat16, device=None) -> dict:
-    """The stacked contiguous decode cache of the whole model, the JAX
-    package's pytree: ``k`` and ``v`` (L, B, cache_len, KV, hd) zeros on
-    ``device`` — with MLA ``ckv`` (L, B, seq_len, kv_lora_rank) and
-    ``krope`` (L, B, seq_len, rope_head_dim) — and the per-layer ``pos``
-    (L,) int32 zeros.  ``pos`` stays a host tensor: positions, write slots
-    and masks derive from it without a device round trip."""
-    n = cfg.n_layers
+def _stack(n: int, state: dict) -> dict:
+    """``n`` copies of one layer's state, stacked on a leading axis."""
+    return {k: t[None].repeat(n, *([1] * t.dim())) for k, t in state.items()}
+
+
+def _attention_cache(cfg: ArchConfig, n: int, batch: int, seq_len: int,
+                     dtype, device) -> dict:
     if cfg.use_mla:
         cache = {"ckv": torch.zeros((n, batch, seq_len, cfg.kv_lora_rank),
                                     dtype=dtype, device=device),
@@ -239,3 +373,38 @@ def init_lm_cache(cfg: ArchConfig, batch: int, seq_len: int,
                  "v": torch.zeros(shape, dtype=dtype, device=device)}
     cache["pos"] = torch.zeros((n,), dtype=torch.int32)
     return cache
+
+
+def init_lm_cache(cfg: ArchConfig, batch: int, seq_len: int,
+                  dtype=torch.bfloat16, device=None) -> dict:
+    """The stacked contiguous decode cache of the whole model, the JAX
+    package's pytree, on ``device``:
+
+    - dense / MoE: ``k`` and ``v`` (L, B, cache_len, KV, hd) zeros — with
+      MLA ``ckv`` (L, B, seq_len, kv_lora_rank) and ``krope`` (L, B,
+      seq_len, rope_head_dim) — and the per-layer ``pos`` (L,) int32;
+    - ssm: ``{"blocks": {"mlstm": {conv, C, n, m}, "slstm": {h, c, n,
+      m}}, "pos": 0}``, each state stacked over the L/2 pairs;
+    - hybrid: ``{"mamba": {conv, ssd}, "shared": {k, v, pos}}``, the
+      Mamba2 states stacked over the L layers and the shared attention's
+      cache over its L / hybrid_period applications.
+
+    The recurrent states are fp32 whatever ``dtype``, which reaches only
+    the attention caches (as in the JAX package, whose
+    ``init_lm_cache`` calls the state inits without a dtype).  ``pos``
+    stays on the host (a tensor, or xLSTM's int): positions, write slots
+    and masks derive from it without a device round trip."""
+    if cfg.family == "ssm":
+        n = cfg.n_layers // 2
+        return {"blocks": {
+            "mlstm": _stack(n, S.init_mlstm_state(cfg, batch, device=device)),
+            "slstm": _stack(n, S.init_slstm_state(cfg, batch, device))},
+            "pos": 0}
+    if cfg.family == "hybrid":
+        return {"mamba": _stack(cfg.n_layers, S.init_mamba2_state(
+                    cfg, batch, device=device)),
+                "shared": _attention_cache(
+                    cfg, cfg.n_layers // cfg.hybrid_period, batch, seq_len,
+                    dtype, device)}
+    return _attention_cache(cfg, cfg.n_layers, batch, seq_len, dtype,
+                            device)
