@@ -37,7 +37,11 @@ Phases, each printing one JSON line or more:
                and the batch; flash_decode also at zamba2-2.7b's shared
                attention (B 8, H = KV = 32, D = 80, the fp32 CUDA-core
                variant in bf16 too) and quant_matmul at its MLP (M = 8
-               and 4,096, exactly equal);
+               and 4,096, exactly equal); flash_decode at whisper-small's
+               decoder (B 8, H = KV = 12: g = 1, D = 64, 68 live slots of
+               69; "tc", two launches and a subset of the batch bit for
+               bit) and quant_matmul at its MLP (M = 8 and 12,000,
+               exactly equal);
 4. cpu_vs_gpu — Qwen2-7B at full width cut to 2 layers in fp32: the port
                on the CPU (plain versions) and on the card (kernels) must
                emit equal greedy tokens — the paged engine through a
@@ -63,7 +67,9 @@ Phases, each printing one JSON line or more:
                flash_decode at granite's H = 16 over KV = 8, D = 64,
                quant_matmul at DeepSeek-V2's shared experts (M = 4 and
                1,024); sub-rows at phase 13's: flash_decode at zamba2's
-               D = 80 and quant_matmul at its shared MLP; the
+               D = 80 and quant_matmul at its shared MLP; at phase 14's:
+               flash_decode at whisper-small's g = 1 and quant_matmul at
+               its MLP (M = 8 and 12,000); the
                rows name the variant and tiles (decode: chunk and
                chunks; quant_matmul: splits) that ran, and the decode
                rows split their device time by kernel (torch.profiler);
@@ -159,7 +165,25 @@ Phases, each printing one JSON line or more:
                (d) the CPU against the card in fp32 (zamba2 on one
                segment of 6 layers, xlstm whole), greedy tokens equal on
                the decided rows.  Runs before phase 6, whose rows report
-               its launch counts.
+               its launch counts;
+14. encdec   — the encoder-decoder family: (a) whisper-small whole (12 +
+               12 layers, d_model 768, 12 heads of 64, d_ff 3,072, vocab
+               51,865, 1,500 frames; fp32 weights from seed 0) through
+               contiguous ``generate`` with stub frames (batch 8, a
+               4-token prompt, 64 new tokens) under the bf16 and the
+               int8-mlp policy — flash_decode 12 a decode step, all "tc"
+               at g = 1, quant_matmul at every ``mlp/…`` product of the
+               encoder, the prefill and each step under int8-mlp, all
+               "tc" — with the encoder timed alone, a request's cross K/V
+               bytes, peak memory and a profile of 4 decode steps split
+               into self-attention, cross-attention and MLP; (b) a
+               prefill of 3 tokens and one decode step against the
+               4-token prefill's last logits (fp32 within one bf16 ulp of
+               the largest, the served bf16 one reported); (c) the CPU
+               against the card in fp32 at whisper-small's width cut to
+               whisper-smoke's 2 + 2 layers, greedy tokens equal on the
+               decided rows.  Runs before phase 6, whose rows report its
+               launch counts.
 
 Then one ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line, and the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises and
@@ -174,10 +198,11 @@ kernels and host ops — and over 16 contiguous decode steps under each
 policy) runs only when asked.
 
 Usage: ``python3 chip_smoke.py [--phases
-1,2,3,4,5,6,8,9,10,11,12,13[,7]] [--src DIR]``; ``--phases 1,2,9,10``
+1,2,3,4,5,6,8,9,10,11,12,13,14[,7]] [--src DIR]``; ``--phases 1,2,9,10``
 builds the kernels and drives the SERVE and durability paths alone,
 ``--phases 1,2,3,11`` the design flow with training, ``--phases 1,2,12``
-the MoE family, ``--phases 1,2,3,13`` the SSM and hybrid families.
+the MoE family, ``--phases 1,2,3,13`` the SSM and hybrid families,
+``--phases 1,2,3,14`` the encoder-decoder family.
 ``--src`` drives the ``repro_torch`` under another tree (e.g. the parent
 commit unpacked beside this one) with this script's phases; with
 ``--phases 1,6`` that times both commits' kernels with the same rows in one
@@ -187,6 +212,7 @@ call.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import statistics
@@ -206,11 +232,18 @@ MM_FP32_REL = 1e-5                  # fp32 products: of the largest output
 KERNELS = ("flash_decode_paged", "flash_prefill_ragged", "flash_decode",
            "quant_matmul", "block_sparse_matmul", "flash_attention")
 # attention shapes (H, KV, D): Qwen2-7B's (phases 5 and 8),
-# granite-moe-1b-a400m's (phase 12) and zamba2-2.7b's shared block
-# (phase 13: D = 80, the fp32 CUDA-core variant in bf16 too)
+# granite-moe-1b-a400m's (phase 12), zamba2-2.7b's shared block
+# (phase 13: D = 80, the fp32 CUDA-core variant in bf16 too) and
+# whisper-small's decoder (phase 14)
 QWEN_ATTN = (28, 4, 128)
 GRANITE_ATTN = (16, 8, 64)
 ZAMBA_ATTN = (32, 32, 80)
+# whisper-small's decoder self-attention (phase 14): MHA, g = 1, D = 64
+WHISPER_ATTN = (12, 12, 64)
+# phase 14's traffic: batch 8, 1,500 stub frames each, a 4-token decoder
+# prompt (Whisper's start-of-transcript sequence), 64 new tokens
+WHISPER = dict(batch=8, prompt_len=4, gen=64)
+WHISPER_CACHE_LEN = WHISPER["prompt_len"] + WHISPER["gen"] + 1
 
 
 def emit(obj: dict) -> None:
@@ -435,8 +468,10 @@ def _contig_masks(cache_len: int) -> list:
 # tensor-core kernel's ragged edges: M, N and the last k-block ragged,
 # swapped (M <= 64) and not, with and without a split; then granite's
 # tied lm_head under int8 (N = 49,155, odd), DeepSeek-V2's shared
-# experts at decode (M = 4) and prefill (M = 1,024), and zamba2-2.7b's
-# shared MLP at decode (M = 8) and prefill (M = 4,096)
+# experts at decode (M = 4) and prefill (M = 1,024), zamba2-2.7b's
+# shared MLP at decode (M = 8) and prefill (M = 4,096), and
+# whisper-small's MLP at decode (M = 8) and in the encoder (M = 8 x
+# 1,500)
 QMM_SHAPES = ((8, 3584, 18944), (8, 18944, 3584), (4096, 3584, 18944),
               (4096, 18944, 3584), (3, 56, 40), (5, 100, 17),
               (130, 72, 200), (128, 152064, 3584), (3, 80, 40),
@@ -445,7 +480,8 @@ QMM_SHAPES = ((8, 3584, 18944), (8, 18944, 3584), (4096, 3584, 18944),
               (512, 512, 10), (8, 1024, 49155), (512, 1024, 49155),
               (4, 5120, 3072), (1024, 5120, 3072), (4, 3072, 5120),
               (1024, 3072, 5120), (8, 2560, 10240), (8, 10240, 2560),
-              (4096, 2560, 10240), (4096, 10240, 2560))
+              (4096, 2560, 10240), (4096, 10240, 2560), (8, 768, 3072),
+              (8, 3072, 768), (12000, 768, 3072), (12000, 3072, 768))
 # the INT8 straight-through product (models/common.py::Int8MatmulSTE) at
 # the bench models' evaluation shapes and a Qwen2-7B training forward
 STE_SHAPES = ((512, 16, 64), (512, 32, 5), (512, 512, 10),
@@ -481,7 +517,7 @@ def _check_quant_matmul(gen) -> dict:
     n_cases, variants = 0, {}
     for m, k, nn in QMM_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
-            if (m == 4096 or k > 100_000) and dtype == torch.float32:
+            if (m >= 4096 or k > 100_000) and dtype == torch.float32:
                 continue
             x = torch.randn((m, k), generator=gen).to(dtype).cuda()
             w = (0.02 * torch.randn((k, nn), generator=gen)).to(dtype).cuda()
@@ -915,6 +951,38 @@ def _check_decode_tc_bits(gen) -> dict:
     return checks
 
 
+def _check_whisper_decode(gen, worst) -> dict:
+    """flash_decode at whisper-small's decoder self-attention: R = 8,
+    H = KV = 12 (g = 1: one live query row in each 16-row ``mma`` A
+    tile), D = 64, the 69-slot cache of phase 14's ``generate`` with 68
+    live slots.  bf16 on the tensor-core variant within ``bf16_tol`` of
+    the plain version, and bit for bit: two launches agree, and
+    sequences 3 and 6 alone give their bits in the batch of 8."""
+    import torch
+    from repro_torch.kernels import decode_tc as dtc
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models import layers as L
+    n, pos = WHISPER_CACHE_LEN, WHISPER_CACHE_LEN - 2
+    q, k, v = _contig_inputs(gen, 8, n, *WHISPER_ATTN, torch.bfloat16)
+    mask = L.decode_attention_mask(
+        L.kv_positions_for_cache(pos, n, 0, device="cuda"), pos, 0)
+    full = fd.flash_decode(q, k, v, mask)
+    _expect_decode_tc(fd, dtc.CHUNK, dtc.n_chunks(n, dtc.CHUNK))
+    _compare("flash_decode", full, fd.flash_decode_plain(q, k, v, mask),
+             torch.bfloat16, worst, ("whisper", *WHISPER_ATTN, n, pos))
+    idx = torch.tensor([3, 6], device="cuda")
+    checks = {"live_slots": int(mask.sum()),
+              "two_launches": torch.equal(full,
+                                          fd.flash_decode(q, k, v, mask)),
+              "subset": torch.equal(
+                  fd.flash_decode(q[idx].contiguous(), k[idx].contiguous(),
+                                  v[idx].contiguous(), mask), full[idx])}
+    if checks["live_slots"] != pos + 1 or not (checks["two_launches"]
+                                                and checks["subset"]):
+        raise AssertionError(f"flash_decode at g = 1: {checks}")
+    return checks
+
+
 def _check_smem_models() -> int:
     """Each wrapper's Python shared-memory model (what the autotuner
     filters on and the wrapper checks) equals the number its kernel
@@ -1060,7 +1128,9 @@ def phase_kernels() -> dict:
         shapes = [(3, h, kvh, 8, n) for h, kvh in ((4, 4), (4, 2), (7, 1))
                   for n in (16, 37, 577)] + [(8, *QWEN_ATTN, 577),
                                              (8, *GRANITE_ATTN, 577),
-                                             (8, *ZAMBA_ATTN, 577)]
+                                             (8, *ZAMBA_ATTN, 577),
+                                             (8, *WHISPER_ATTN,
+                                              WHISPER_CACHE_LEN)]
         for b, h, kvh, d, n in shapes:
             q, k, v = _contig_inputs(gen, b, n, h, kvh, d, dtype)
             for case, mask in _contig_masks(n):
@@ -1083,6 +1153,7 @@ def phase_kernels() -> dict:
     bit_equal = _check_tc_bit_equal(gen)
     n_dtc = _check_decode_tc(gen, worst)
     decode_bits = _check_decode_tc_bits(gen)
+    decode_bits["whisper"] = _check_whisper_decode(gen, worst)
     emit({"phase": "kernels", "cases": n_cases + n_qmm + n_tc + n_dtc,
           "tc_cases": n_tc, "tc_bit_equal": bit_equal,
           "decode_tc_cases": n_dtc, "decode_tc_bits": decode_bits,
@@ -1411,7 +1482,7 @@ def _state_bytes(cfg, batch: int, seq_len: int) -> dict:
 
 
 def phase_generate(cfg, lm, c=GENERATE, policies=("bf16", "int8-mlp"),
-                   phase="generate") -> dict:
+                   phase="generate", frames=None) -> dict:
     """Contiguous ``generate`` at full width in bf16 (by default batch 8,
     512-token prompts, 64 new tokens) under each of ``policies`` (bf16,
     int8-mlp), on the one parameter set (the policy lives on the model,
@@ -1419,12 +1490,16 @@ def phase_generate(cfg, lm, c=GENERATE, policies=("bf16", "int8-mlp"),
     just before it, read just after.  flash_decode launches a GQA layer
     a decode step (none under MLA, whose decode attention is plain
     PyTorch), quant_matmul each ``mlp/…`` product under int8-mlp.
-    Under the bf16 policy every flash_decode launch takes the variant
+    Under either policy every flash_decode launch takes the variant
     ``decode_tc.variant`` gives the model's head dim (the tensor cores at
     D = 64 and 128, zamba2's D = 80 the fp32 CUDA-core kernel).  For the
     SSM and hybrid families the run also reports a request's recurrent
-    state beside its attention K/V.  Returns the launches of flash_decode
-    (bf16 run) and quant_matmul (int8-mlp run)."""
+    state beside its attention K/V.  An enc-dec model's prefill encodes
+    ``frames`` (its encoder's ``mlp/…`` products, once a run, also
+    quantized under int8-mlp); the run also reports the encoder timed
+    alone after it (``encode_s``) and a request's cross K/V bytes.
+    Returns the launches of flash_decode (bf16 run) and quant_matmul
+    (int8-mlp run)."""
     import numpy as np
     import torch
     from repro_torch.data.synthetic import lm_tokens
@@ -1445,20 +1520,22 @@ def phase_generate(cfg, lm, c=GENERATE, policies=("bf16", "int8-mlp"),
         int8 = pname == "int8-mlp"
         model = build_model(cfg, serve_policy(int8))
         fns = make_serve_fns(model)
-        generate(model, lm, prompts[:, :64], 4, 69, fns=fns)   # warm-up
+        generate(model, lm, prompts[:, :64], 4, 69, fns=fns,
+                 frames=frames)                                  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         syncs0 = L.moe_host_syncs
         _zero_counts()
         toks, t = timed_generate(model, lm, prompts, n_gen, cache_len,
-                                 fns=fns)
+                                 fns=fns, frames=frames)
         counts = _read_counts()
         tc_counts = _read_tc_counts()
         syncs = L.moe_host_syncs - syncs0
         expected = {"flash_decode_paged": 0, "flash_prefill_ragged": 0,
                     "flash_decode": n_attn * (n_gen - 1),
-                    "quant_matmul": _mlp_linears(cfg) * n_gen if int8
-                    else 0, "block_sparse_matmul": 0, "flash_attention": 0}
+                    "quant_matmul": _mlp_linears(cfg) * n_gen
+                    + 2 * cfg.n_enc_layers if int8 else 0,
+                    "block_sparse_matmul": 0, "flash_attention": 0}
         if counts != expected:
             raise AssertionError(f"generate {cfg.name} {pname}: launch "
                                  f"counts {counts} != {expected}")
@@ -1468,7 +1545,7 @@ def phase_generate(cfg, lm, c=GENERATE, policies=("bf16", "int8-mlp"),
         # bf16 q and cache: every decode step's attention on the variant
         # the head dim gives (tensor cores at D = 64 or 128)
         want_tc = counts["flash_decode"] if decode_tc_variant == "tc" else 0
-        if not int8 and tc_counts["flash_decode"] != want_tc:
+        if tc_counts["flash_decode"] != want_tc:
             raise AssertionError(f"generate {cfg.name} {pname}: tensor-core "
                                  f"launches {tc_counts}, expected "
                                  f"{want_tc} of {counts['flash_decode']} "
@@ -1497,6 +1574,8 @@ def phase_generate(cfg, lm, c=GENERATE, policies=("bf16", "int8-mlp"),
                 cfg.nope_head_dim + cfg.rope_head_dim + cfg.v_head_dim)
         if cfg.family in ("ssm", "hybrid"):
             extra.update(_state_bytes(cfg, b, cache_len))
+        if cfg.enc_dec:
+            extra.update(_encoder_alone(cfg, model, lm, frames, cache_len))
         if counts["flash_decode"]:
             extra["flash_decode_variant"] = decode_tc_variant
         if not any(counts.values()):
@@ -1656,11 +1735,13 @@ def _families_cpu_vs_gpu() -> None:
 
 def _generate_cpu_vs_gpu(cfg, lm_cpu, lm_gpu, pname: str,
                          prompt_len: int = 32, gen: int = 8,
-                         candidates: int = FAMILIES_CANDIDATES) -> dict:
+                         candidates: int = FAMILIES_CANDIDATES,
+                         frames=None) -> dict:
     """``generate`` (host loop, fp32 cache) of ``candidates`` prompts on
-    both sides under ``pname``; each greedy step's top-2 logit gap is
-    read on the way.  The rows whose every step keeps a gap of
-    :data:`FAMILIES_GAP` on the CPU must agree (at least two rows)."""
+    both sides under ``pname`` (an enc-dec model's with ``frames``); each
+    greedy step's top-2 logit gap is read on the way.  The rows whose
+    every step keeps a gap of :data:`FAMILIES_GAP` on the CPU must agree
+    (at least two rows)."""
     import numpy as np
     import torch
     from repro_torch.launch.serve import (ServeFns, generate,
@@ -1689,7 +1770,8 @@ def _generate_cpu_vs_gpu(cfg, lm_cpu, lm_gpu, pname: str,
                        decode_one=gapped(model.decode_step))
         t0 = time.perf_counter()
         toks = generate(model, lm, prompts, gen, prompt_len + gen + 1,
-                        scan=False, fns=fns, cache_dtype=torch.float32)
+                        scan=False, fns=fns, cache_dtype=torch.float32,
+                        frames=frames)
         secs[side] = time.perf_counter() - t0
         res[side] = (toks.cpu(), torch.stack(gaps, 1).min(dim=1).values)
     decided = res["cpu"][1] >= FAMILIES_GAP
@@ -1729,7 +1811,7 @@ def phase_ssm_hybrid() -> dict:
     (b) xlstm-125m at full width and depth (6 mLSTM/sLSTM pairs, fp32
     weights) under the bf16 policy, no kernel launched, and its profile;
     (c) for each, a prefill of 511 tokens and one decode step against the
-    512-token prefill's last logits (:func:`_ssm_handoff`); (d) the CPU
+    512-token prefill's last logits (:func:`_handoff`); (d) the CPU
     against the card in fp32.  fp32 products stay fp32 (no TF32).
     Returns the kernels' launches on these paths."""
     import torch
@@ -1755,7 +1837,7 @@ def phase_ssm_hybrid() -> dict:
             launches.update(got)
         _profile_generate(cfg, lm, policies=("bf16",),
                           phase=f"ssm_hybrid_profile_{arch}")
-        _ssm_handoff(cfg, lm)
+        _handoff(cfg, lm)
         del lm
         torch.cuda.empty_cache()
     for arch in ("zamba2_2p7b", "xlstm_125m"):
@@ -1765,11 +1847,14 @@ def phase_ssm_hybrid() -> dict:
     return launches
 
 
-def _ssm_handoff(cfg, lm, s: int = GENERATE["prompt_len"]) -> None:
-    """(c): a prefill of ``s - 1`` tokens and one decode step against the
-    ``s``-token prefill's last logits, on the same bf16 weights: the
+def _handoff(cfg, lm, s: int = GENERATE["prompt_len"], frames=None,
+             phase: str = "ssm_hybrid_handoff") -> None:
+    """Phase 13 (c), phase 14 (b): a prefill of ``s - 1`` tokens and one
+    decode step against the ``s``-token prefill's last logits, on the
+    same weights: the
     chunked SSD / mLSTM and the contiguous prefill attention against the
-    recurrent steps and flash_decode.  Held within ``bf16_tol`` in fp32
+    recurrent steps and flash_decode (an enc-dec model's prefills also
+    encode ``frames``).  Held within ``bf16_tol`` in fp32
     (activations, cache and products), where the two paths differ only
     in fp32 summation order.  The served configuration (bf16 activations,
     cache and products) is reported beside it: there the decode path
@@ -1785,15 +1870,16 @@ def _ssm_handoff(cfg, lm, s: int = GENERATE["prompt_len"]) -> None:
     b = GENERATE["batch"]
     toks = torch.from_numpy(lm_tokens(b * s, cfg.vocab_size, seed=2)
                             .reshape(b, s).astype(np.int32)).cuda()
+    extra = {} if frames is None else {"frames": frames.cuda()}
     out = {}
     for label, act, level, cache_dtype in (
             ("fp32", "float32", "fp32", torch.float32),
             ("served", cfg.act_dtype, "bf16", torch.bfloat16)):
         model = build_model(cfg.replace(act_dtype=act),
                             PrecisionPolicy(default=level))
-        full, _ = model.prefill(lm, {"tokens": toks},
+        full, _ = model.prefill(lm, {"tokens": toks, **extra},
                                 model.init_cache(b, s, cache_dtype))
-        _, cache = model.prefill(lm, {"tokens": toks[:, :-1]},
+        _, cache = model.prefill(lm, {"tokens": toks[:, :-1], **extra},
                                  model.init_cache(b, s, cache_dtype))
         step, _ = model.decode_step(lm, cache, toks[:, -1:])
         ref = full[:, -1].float()
@@ -1808,7 +1894,7 @@ def _ssm_handoff(cfg, lm, s: int = GENERATE["prompt_len"]) -> None:
         raise AssertionError(f"{cfg.name} handoff in fp32: prefill({s - 1}) "
                              f"+ one decode step vs prefill({s}): {err} > "
                              f"{tol}")
-    emit({"phase": "ssm_hybrid_handoff", "arch": cfg.name, "batch": b,
+    emit({"phase": phase, "arch": cfg.name, "batch": b,
           "prompt_len": s, **out})
 
 
@@ -1837,6 +1923,130 @@ def _ssm_cpu_vs_gpu(arch: str) -> None:
         for p in SSM_POLICIES[arch]}
     emit({"phase": "ssm_hybrid_cpu_vs_gpu", "arch": cfg.name,
           "layers": cfg.n_layers, "dtype": "float32", **out})
+    del lm_gpu, lm_cpu
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------- phase 14: encoder-decoder
+# CPU against the card: whisper-small's width at whisper-smoke's depth
+# (2 + 2 layers); its tied head reads a d_model-768 embedding of 51,865
+# rows, so few greedy steps keep a 0.05 top-2 gap: 4 steps a candidate;
+# candidates by policy (the CPU's int8 products, in float64, cost most)
+WHISPER_CPU = dict(enc_layers=2, layers=2,
+                   candidates={"bf16": 16, "int8-mlp": 8}, prompt_len=4,
+                   gen=4)
+WHISPER_POLICIES = ("bf16", "int8-mlp")
+# decode steps a profile: reading a profile back costs ~1.5 s a step
+# (~1,400-1,800 kernels and their host ops), the steps themselves 25-50 ms
+WHISPER_PROFILE_STEPS = 4
+
+
+def phase_encdec() -> dict:
+    """The encoder-decoder family on the card: (a) whisper-small whole
+    (12 + 12 layers, d_model 768, 1,500 frames, fp32 weights from seed 0)
+    through contiguous ``generate`` with frames (batch 8, a 4-token
+    prompt, 64 new tokens) under the bf16 and the int8-mlp policy —
+    flash_decode 12 a decode step, all "tc" at g = 1, quant_matmul at
+    every ``mlp/…`` product of the encoder, the prefill and the steps
+    under int8-mlp, all "tc" — with the encoder timed alone, a request's
+    cross K/V bytes and a profile of 4 decode steps split into the
+    self-attention, the cross-attention and the MLP; (b) a prefill of 3
+    tokens and one decode step against the 4-token prefill's last
+    logits; (c) the CPU against the card in fp32 at whisper-smoke's
+    depth.  fp32 products stay fp32 (no TF32).  Returns the kernels'
+    launches on these paths."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.whisper_serve import stub_frames
+    from repro_torch.models.api import build_model
+    if torch.get_float32_matmul_precision() != "highest" \
+            or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("phase 14: TF32 is on for fp32 products")
+    t_phase = time.perf_counter()
+    cfg = get_config("whisper_small")
+    t0 = time.perf_counter()
+    lm = build_model(cfg).init(seed=0)
+    torch.cuda.synchronize()
+    emit({"phase": "encdec_init", "arch": cfg.name,
+          "enc_layers": cfg.n_enc_layers, "layers": cfg.n_layers,
+          "param_dtype": cfg.param_dtype, "reduced": "nothing",
+          "params": sum(p.numel() for p in lm.parameters()),
+          "init_s": time.perf_counter() - t0})
+    frames = stub_frames(WHISPER["batch"], cfg.n_frames, cfg.d_model)
+    secs = {}
+    t0 = time.perf_counter()
+    launches = phase_generate(cfg, lm, WHISPER, WHISPER_POLICIES,
+                              "encdec_generate", frames)
+    secs["generate"] = time.perf_counter() - t0
+    _profile_generate(cfg, lm, WHISPER, WHISPER_POLICIES, "encdec_profile",
+                      frames, steps=WHISPER_PROFILE_STEPS)
+    secs["profile"] = time.perf_counter() - t0 - sum(secs.values())
+    _handoff(cfg, lm, WHISPER["prompt_len"], frames,
+             phase="encdec_handoff")
+    secs["handoff"] = time.perf_counter() - t0 - sum(secs.values())
+    del lm
+    torch.cuda.empty_cache()
+    _encdec_cpu_vs_gpu()
+    secs["cpu_vs_gpu"] = time.perf_counter() - t0 - sum(secs.values())
+    emit({"phase": "encdec_done", "launches": launches,
+          "seconds": time.perf_counter() - t_phase, "seconds_by_part": secs})
+    return launches
+
+
+def _encoder_alone(cfg, model, lm, frames, cache_len: int) -> dict:
+    """The enc-dec extras of a ``generate`` run: the encoder alone over
+    ``frames``, timed (outside the counted run), its output checked
+    finite, and a request's cross K/V bytes in the bf16 cache."""
+    import torch
+    from repro_torch.models import transformer as T
+    b = frames.shape[0]
+    fr = frames.cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        enc = T.encdec_encode(model.ctx(), cfg, lm, fr)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    if not bool(torch.isfinite(enc).all()):
+        raise AssertionError(f"{cfg.name}: the encoder's output is not "
+                             f"finite")
+    cache = T.init_encdec_cache(None, cfg, None, b, cache_len,
+                                device="meta")
+    cross = sum(cache[name].numel() * cache[name].element_size()
+                for name in ("cross_k", "cross_v")) // b
+    return {"enc_layers": cfg.n_enc_layers, "frames": cfg.n_frames,
+            "encode_s": encode_s, "cross_kv_bytes_per_request": cross}
+
+
+def _encdec_cpu_vs_gpu() -> None:
+    """(c): the port on the CPU (plain versions) and on the card (kernels)
+    from one set of fp32 weights drawn on the card: whisper-small's width
+    at whisper-smoke's depth (2 + 2 layers), fp32 activations and cache,
+    through ``generate`` with stub frames under each policy."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.whisper_serve import stub_frames
+    from repro_torch.models.api import build_model
+    from repro_torch.quant.policy import PrecisionPolicy
+    c = WHISPER_CPU
+    cfg = get_config("whisper_small").replace(
+        n_enc_layers=c["enc_layers"], n_layers=c["layers"],
+        param_dtype="float32", act_dtype="float32")
+    policy = PrecisionPolicy(default="fp32")
+    t0 = time.perf_counter()
+    lm_gpu = build_model(cfg, policy, device="cuda").init(seed=0)
+    lm_cpu = build_model(cfg, policy, device="cpu").empty_params()
+    lm_cpu.load_state_dict(lm_gpu.state_dict())
+    n = c["candidates"]
+    frames = stub_frames(max(n.values()), cfg.n_frames, cfg.d_model, seed=3)
+    out = {"init_s": time.perf_counter() - t0}
+    out["generate"] = {
+        p: _generate_cpu_vs_gpu(cfg, lm_cpu, lm_gpu, p, c["prompt_len"],
+                                c["gen"], n[p], frames[:n[p]])
+        for p in WHISPER_POLICIES}
+    emit({"phase": "encdec_cpu_vs_gpu", "arch": cfg.name,
+          "enc_layers": cfg.n_enc_layers, "layers": cfg.n_layers,
+          "dtype": "float32", **out})
     del lm_gpu, lm_cpu
     torch.cuda.empty_cache()
 
@@ -2855,6 +3065,10 @@ def phase_designflow(device="cuda", cfg=None) -> dict:
 
 
 PREFILL_RANGE = "burst_prefill"
+# the enc-dec decode profile's ranges over a decoder layer's parts
+PART_RANGES = ("layer_self_attention", "layer_cross_attention",
+               "layer_mlp")
+USER_RANGES = (PREFILL_RANGE,) + PART_RANGES
 
 
 def phase_profile() -> None:
@@ -2907,7 +3121,7 @@ def _profile_summary(prof, wall: float, table: str) -> dict:
     # device-side events only: a host op's device time repeats its
     # kernels' time (and a user range's device span is no kernel)
     dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-           and e.self_device_time_total > 0 and e.key != PREFILL_RANGE]
+           and e.self_device_time_total > 0 and e.key not in USER_RANGES]
     busy_us = sum(e.self_device_time_total for e in dev)
     top_dev = sorted(dev, key=lambda e: e.self_device_time_total,
                      reverse=True)[:15]
@@ -2925,11 +3139,46 @@ def _profile_summary(prof, wall: float, table: str) -> dict:
                           e.count] for e in top_cpu]}
 
 
+@contextlib.contextmanager
+def _part_ranges(on: bool):
+    """With ``on``: for the block's duration, ``layers.attention`` and
+    ``layers.mlp`` run inside the :data:`PART_RANGES` record_function
+    ranges (cross-attention: a call with ``kv_override``), and are put
+    back after.  The enc-dec decoder reaches both through the module."""
+    from torch.profiler import record_function
+    from repro_torch.models import layers as L
+    if not on:
+        yield
+        return
+    attention, mlp = L.attention, L.mlp
+
+    def ranged_attention(*args, **kw):
+        cross = kw.get("kv_override") is not None
+        with record_function(PART_RANGES[1] if cross else PART_RANGES[0]):
+            return attention(*args, **kw)
+
+    def ranged_mlp(*args, **kw):
+        with record_function(PART_RANGES[2]):
+            return mlp(*args, **kw)
+
+    L.attention, L.mlp = ranged_attention, ranged_mlp
+    try:
+        yield
+    finally:
+        L.attention, L.mlp = attention, mlp
+
+
 def _profile_generate(cfg, lm, c=GENERATE, policies=("bf16", "int8-mlp"),
-                      phase="profile_generate") -> None:
-    """torch.profiler over 16 contiguous decode steps of a ``generate``
-    shape (the phase-5 one by default; after an unprofiled prefill), once
-    per policy."""
+                      phase="profile_generate", frames=None,
+                      steps: int = 16) -> None:
+    """torch.profiler over ``steps`` contiguous decode steps of a ``generate``
+    shape (the phase-5 one by default; after an unprofiled prefill, which
+    encodes an enc-dec model's ``frames``), once per policy.  For an
+    enc-dec model the profile also holds a range around each decoder
+    layer's self-attention (its projections, the cache write and
+    flash_decode), cross-attention (over the cached frames) and MLP, put
+    there by :func:`_part_ranges` for this run only: each part's host and
+    device milliseconds a step and its share of the step."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2938,29 +3187,51 @@ def _profile_generate(cfg, lm, c=GENERATE, policies=("bf16", "int8-mlp"),
                                           serve_policy)
     from repro_torch.models.api import build_model
     from repro_torch.serving.engine import greedy_argmax
-    b, s, steps = c["batch"], c["prompt_len"], 16
+    b, s = c["batch"], c["prompt_len"]
     prompts = torch.from_numpy(lm_tokens(b * s, cfg.vocab_size, seed=1)
                                .reshape(b, s).astype(np.int32)).cuda()
+    extra = {} if frames is None else {"frames": frames.cuda()}
     for pname in policies:
         int8 = pname == "int8-mlp"
         model = build_model(cfg, serve_policy(int8))
         fns = make_serve_fns(model)
-        generate(model, lm, prompts[:, :64], 4, 69, fns=fns)   # warm-up
+        generate(model, lm, prompts[:, :64], 4, 69, fns=fns,
+                 frames=frames)                                  # warm-up
         cache = model.init_cache(b, s + steps + 1)
-        logits, cache = fns.prefill(lm, {"tokens": prompts}, cache)
+        logits, cache = fns.prefill(lm, {"tokens": prompts, **extra}, cache)
         tok = greedy_argmax(logits[:, -1:]).to(torch.int32)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with _part_ranges(cfg.enc_dec), \
+                profile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             fns.decode_scan(lm, cache, tok, steps)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         summary = _profile_summary(prof, wall, f"{phase}_{pname}.txt")
+        step_ms = 1e3 * wall / steps
+        busy_ms = max(1e3 * summary["device_busy_s"] / steps, 1e-9)
+        parts = {}
+        for e in prof.key_averages():
+            if e.key in PART_RANGES and \
+                    e.device_type == torch.autograd.DeviceType.CPU:
+                host_ms = e.cpu_time_total / 1e3 / steps
+                dev_ms = e.device_time_total / 1e3 / steps
+                parts[e.key] = {"calls_per_step": e.count / steps,
+                                "host_ms": host_ms,
+                                "host_share_of_step": host_ms / step_ms,
+                                "device_ms": dev_ms,
+                                "device_share_of_busy": dev_ms / busy_ms}
+        flash_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and "decode" in e.key) / 1e3 / steps
+        if parts:
+            summary["parts"] = parts
         emit({"phase": phase, "arch": cfg.name, "policy": pname,
               "batch": b, "prompt_len": s, "decode_steps": steps,
-              "wall_s": wall, "decode_step_ms": 1e3 * wall / steps,
+              "wall_s": wall, "decode_step_ms": step_ms,
               "device_events_per_step": summary["device_events"] / steps,
+              "flash_decode_device_ms": flash_ms,
               **summary})
         del fns, model, cache, logits
         torch.cuda.empty_cache()
@@ -3016,12 +3287,15 @@ def _device_ms_by_kernel(fn, flush, reps: int = 20,
             and e.count == reps and match in e.key}
 
 
-def phase_timing(launches: dict, families: dict, hybrid: dict) -> list:
+def phase_timing(launches: dict, families: dict, hybrid: dict,
+                 encdec: dict) -> list:
     """Kernel rows at the phase-5 shapes (``launches``: phases 5 and 8),
     with sub-rows at granite-moe-1b-a400m's burst and ``generate``
     shapes and DeepSeek-V2's shared experts (``families``: phase 12's
-    launches), and at zamba2-2.7b's shared block (``hybrid``: phase 13's
-    launches): flash_decode at D = 80 and quant_matmul at its MLP."""
+    launches), at zamba2-2.7b's shared block (``hybrid``: phase 13's
+    launches): flash_decode at D = 80 and quant_matmul at its MLP, and
+    at whisper-small (``encdec``: phase 14's launches): flash_decode at
+    g = 1 over 68 live slots and quant_matmul at its MLP."""
     import torch
     c = SERVE
     gen = torch.Generator().manual_seed(2)
@@ -3053,8 +3327,12 @@ def phase_timing(launches: dict, families: dict, hybrid: dict) -> list:
     row["granite"] = {key: sub[key] for key in SUB_ROW_KEYS + ("launches",)}
     sub = _flash_decode_row(gen, hybrid, flush, sdpa_gqa, ZAMBA_ATTN)
     row["zamba2"] = {key: sub[key] for key in SUB_ROW_KEYS + ("launches",)}
+    sub = _flash_decode_row(gen, encdec, flush, sdpa_gqa, WHISPER_ATTN,
+                            WHISPER, WHISPER_CACHE_LEN - 2)
+    row["whisper"] = {key: sub[key] for key in SUB_ROW_KEYS + ("launches",)}
     rows.append(row)
-    rows.append(_quant_matmul_row(gen, launches, flush, families, hybrid))
+    rows.append(_quant_matmul_row(gen, launches, flush, families, hybrid,
+                                  encdec))
     rows.append(_block_sparse_row(launches, flush))
     rows.append(_flash_attention_row(launches, flush, sdpa_gqa))
     emit({"phase": "timing", "kernels": rows})
@@ -3262,19 +3540,20 @@ def _flash_attention_row(launches, flush, sdpa_gqa) -> dict:
     return row
 
 
-def _flash_decode_row(gen, launches, flush, sdpa_gqa, attn) -> dict:
-    """Contiguous decode at the phase-5 ``generate`` shape: 8 sequences
-    mid-generation (512-token prompt + 32 tokens) over the 577-slot cache,
-    ``attn`` = (H, KV, D)."""
+def _flash_decode_row(gen, launches, flush, sdpa_gqa, attn,
+                      c=GENERATE, pos=None) -> dict:
+    """Contiguous decode at a ``generate`` shape ``c`` (the phase-5 one
+    by default): 8 sequences over the ``prompt_len + gen + 1``-slot
+    cache at position ``pos`` (mid-generation, 32 tokens after the
+    prompt, by default), ``attn`` = (H, KV, D)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.models import layers as L
-    c = GENERATE
     b = c["batch"]
     h, kvh, d = attn
     n = c["prompt_len"] + c["gen"] + 1
-    pos = c["prompt_len"] + 32
+    pos = c["prompt_len"] + 32 if pos is None else pos
     item = 2
     q, k, v = _contig_inputs(gen, b, n, h, kvh, d, torch.bfloat16)
     mask = L.decode_attention_mask(
@@ -3327,17 +3606,25 @@ QMM_HYBRID_ROWS = (("zamba2_up_8", 8, 2560, 10240),
                    ("zamba2_up_4096", 4096, 2560, 10240),
                    ("zamba2_down_8", 8, 10240, 2560),
                    ("zamba2_down_4096", 4096, 10240, 2560))
+# whisper-small's MLP (phase 14, int8-mlp): up and down at decode (M = 8)
+# and in the encoder (M = 8 x 1,500 frames)
+QMM_ENCDEC_ROWS = (("whisper_up_8", 8, 768, 3072),
+                   ("whisper_up_12000", 12000, 768, 3072),
+                   ("whisper_down_8", 8, 3072, 768),
+                   ("whisper_down_12000", 12000, 3072, 768))
 QMM_SUB_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "library_note", "quantize_ms", "wrapper_ms", "max_abs_err",
                 "shapes", "variant", "tiles", "swap", "splits",
                 "device_ms_by_kernel", "launches")
 
 
-def _quant_matmul_row(gen, launches, flush, families, hybrid) -> dict:
+def _quant_matmul_row(gen, launches, flush, families, hybrid,
+                      encdec) -> dict:
     """The int8 product on operands already quantized, at each shape of
     :data:`QMM_ROWS`, :data:`QMM_FAMILY_ROWS` (their ``launches`` from
-    phase 12's ``families``) and :data:`QMM_HYBRID_ROWS` (phase 13's
-    ``hybrid``), with the variant, tiles and splits that ran,
+    phase 12's ``families``), :data:`QMM_HYBRID_ROWS` (phase 13's
+    ``hybrid``) and :data:`QMM_ENCDEC_ROWS` (phase 14's ``encdec``),
+    with the variant, tiles and splits that ran,
     and the weight quantization that every call also pays
     (``quantize_ms``) and the whole wrapper (``wrapper_ms``) timed beside
     it.  Library:
@@ -3346,9 +3633,10 @@ def _quant_matmul_row(gen, launches, flush, families, hybrid) -> dict:
     import torch
     from repro_torch.kernels import quant_matmul as qmm
     row = None
-    for label, m, k, n in QMM_ROWS + QMM_FAMILY_ROWS + QMM_HYBRID_ROWS:
-        counts = {"dsv2": families, "zamba2": hybrid}.get(
-            label.split("_")[0], launches)
+    for label, m, k, n in (QMM_ROWS + QMM_FAMILY_ROWS + QMM_HYBRID_ROWS
+                           + QMM_ENCDEC_ROWS):
+        counts = {"dsv2": families, "zamba2": hybrid,
+                  "whisper": encdec}.get(label.split("_")[0], launches)
         x = torch.randn((m, k), generator=gen).to(torch.bfloat16).cuda()
         w = (0.02 * torch.randn((k, n), generator=gen)).to(
             torch.bfloat16).cuda()
@@ -3412,7 +3700,7 @@ def _row(name, source, replaces, launches, err, tol, kernel, plain, lib,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,8,9,10,11,12,13",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,8,9,10,11,12,13,14",
                     help="comma-separated phases to run (default: all "
                          "but 7)")
     ap.add_argument("--src", default=str(ROOT / "src"),
@@ -3457,6 +3745,7 @@ def main(argv=None) -> int:
     designflow_launches = phase_designflow() if 11 in phases else {}
     families_launches = phase_families() if 12 in phases else {}
     hybrid_launches = phase_ssm_hybrid() if 13 in phases else {}
+    encdec_launches = phase_encdec() if 14 in phases else {}
     flow_launches, durable_launches = {}, {}
     if 9 in phases or 10 in phases:
         model = params = None
@@ -3471,8 +3760,8 @@ def main(argv=None) -> int:
     # block_sparse_matmul and flash_attention run on phase 8's path only
     for name in ("block_sparse_matmul", "flash_attention"):
         launches[name] = tune_launches.get(name, 0)
-    rows = (phase_timing(launches, families_launches, hybrid_launches)
-            if 6 in phases else [])
+    rows = (phase_timing(launches, families_launches, hybrid_launches,
+                         encdec_launches) if 6 in phases else [])
     for row in rows:
         row["tune_launches"] = tune_launches.get(row["name"], 0)
         row["serveflow_launches"] = flow_launches.get(row["name"], 0)
@@ -3480,6 +3769,7 @@ def main(argv=None) -> int:
         row["designflow_launches"] = designflow_launches.get(row["name"], 0)
         row["families_launches"] = families_launches.get(row["name"], 0)
         row["ssm_hybrid_launches"] = hybrid_launches.get(row["name"], 0)
+        row["encdec_launches"] = encdec_launches.get(row["name"], 0)
     if 7 in phases:
         phase_profile()
     emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 3)})

@@ -1,18 +1,23 @@
 """Move JAX-package parameters and cache state into the port.
 
 :func:`params_from_jax` takes the JAX parameter pytree of a decoder-only
-LM (``repro.models.transformer.init_lm``) with numpy leaves and returns
-the port's ``state_dict``: nested keys join with ``.``, and the stacked
-``blocks`` axis splits into ``blocks.{i}.…`` (dense and MoE blocks, GQA
-or MLA attention; xLSTM's ``(mLSTM, sLSTM)`` pairs; zamba2's Mamba2
-blocks), while zamba2's unstacked ``shared`` subtree keeps its nesting
-(``shared.attn.wq``).  :func:`cache_from_jax` takes a contiguous decode
-cache (``init_lm_cache``'s, or one layer's), nested dicts included:
+LM (``repro.models.transformer.init_lm``) or of an encoder-decoder model
+(``init_encdec``) with numpy leaves and returns the port's
+``state_dict``: nested keys join with ``.``, and each stacked layer axis
+— ``blocks``, and the enc-dec ``enc_blocks`` and ``dec_blocks`` — splits
+into ``blocks.{i}.…`` (dense and MoE blocks, GQA or MLA attention;
+xLSTM's ``(mLSTM, sLSTM)`` pairs; zamba2's Mamba2 blocks;
+``dec_blocks.{i}.cross.wq``), while zamba2's unstacked ``shared``
+subtree keeps its nesting (``shared.attn.wq``).  :func:`cache_from_jax`
+takes a contiguous decode cache (``init_lm_cache``'s, or one layer's),
+nested dicts included:
 
 - dense: ``{"k", "v", "pos"}``; MLA: ``{"ckv", "krope", "pos"}``;
 - xLSTM: ``{"blocks": {"mlstm": {"conv", "C", "n", "m"}, "slstm": {"h",
   "c", "n", "m"}}, "pos": ()}``;
-- zamba2: ``{"mamba": {"conv", "ssd"}, "shared": {"k", "v", "pos"}}``.
+- zamba2: ``{"mamba": {"conv", "ssd"}, "shared": {"k", "v", "pos"}}``;
+- enc-dec (``init_encdec_cache``'s): ``{"self": {"k", "v", "pos"},
+  "cross_k", "cross_v"}``.
 
 :func:`bench_params_from_jax` takes the parameters of a bench model
 (``models/cnn.py``: ``{"fc0": {"w", "b"}}``, ``{"conv0": {"w", "bn":
@@ -33,9 +38,14 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
+# the subtrees whose leaves carry a leading layer axis
+STACKED = ("blocks", "enc_blocks", "dec_blocks")
+
+
 def params_from_jax(tree) -> dict[str, torch.Tensor]:
     """JAX parameter pytree (nested dicts of arrays) -> ``state_dict`` of
-    :class:`repro_torch.models.transformer.LM` (CPU tensors)."""
+    :class:`repro_torch.models.transformer.LM` or ``EncDec`` (CPU
+    tensors)."""
     out: dict[str, torch.Tensor] = {}
 
     def walk(path: tuple, node) -> None:
@@ -44,9 +54,9 @@ def params_from_jax(tree) -> dict[str, torch.Tensor]:
                 walk(path + (str(k),), v)
             return
         a = np.asarray(node)
-        if path[0] == "blocks":
+        if path[0] in STACKED:
             for i in range(a.shape[0]):
-                out[".".join(("blocks", str(i)) + path[1:])] = _tensor(a[i])
+                out[".".join((path[0], str(i)) + path[1:])] = _tensor(a[i])
         else:
             out[".".join(path)] = _tensor(a)
 

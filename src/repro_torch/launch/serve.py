@@ -10,7 +10,9 @@ family (``granite_moe_1b_a400m``; ``deepseek_v2_236b``, whose MLA cache
 holds the compressed ``ckv``/``krope``), the SSM family
 (``xlstm_125m``: mLSTM/sLSTM pairs, a recurrent state of one size at any
 context) and the hybrid one (``zamba2_2p7b``: Mamba2 blocks and one
-weight-shared attention+MLP block every ``hybrid_period`` layers).
+weight-shared attention+MLP block every ``hybrid_period`` layers).  The
+encoder-decoder family has its own entry point,
+:mod:`repro_torch.launch.whisper_serve`.
 
 One prefill fills the cache, then ``--gen`` greedy tokens are generated
 (the first from the prefill's logits).  On the card the decode attention
@@ -85,30 +87,38 @@ def make_serve_fns(model) -> ServeFns:
 def generate(model, params, prompts: torch.Tensor, gen: int,
              cache_len: int, *, scan: bool = True,
              fns: ServeFns | None = None,
-             cache_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+             cache_dtype: torch.dtype = torch.bfloat16,
+             frames: torch.Tensor | None = None) -> torch.Tensor:
     """Greedy-generate ``gen`` tokens after prefilling ``prompts`` (B, S)
     (all of one length: the cache position is batch-shared) into a
-    ``cache_dtype`` cache.  Returns (B, gen) int32 on the model's
-    device."""
+    ``cache_dtype`` cache; an enc-dec model's prefill also encodes
+    ``frames`` (B, n_frames, d_model).  Returns (B, gen) int32 on the
+    model's device."""
     fns = fns or make_serve_fns(model)
     return timed_generate(model, params, prompts, gen, cache_len,
-                          scan=scan, fns=fns, cache_dtype=cache_dtype)[0]
+                          scan=scan, fns=fns, cache_dtype=cache_dtype,
+                          frames=frames)[0]
 
 
 def timed_generate(model, params, prompts: torch.Tensor, gen: int,
                    cache_len: int, *, fns: ServeFns, scan: bool = True,
-                   cache_dtype: torch.dtype = torch.bfloat16):
+                   cache_dtype: torch.dtype = torch.bfloat16,
+                   frames: torch.Tensor | None = None):
     """One timed prefill + decode pass.  Returns (tokens,
     {"prefill_s", "decode_s"}); the argmax of the prefill logits counts
-    on the decode side of the split.  Run :func:`generate` once first so
-    that building the kernels stays out of the timed region."""
+    on the decode side of the split, and an enc-dec model's encoder runs
+    inside ``prefill_s``.  Run :func:`generate` once first so that
+    building the kernels stays out of the timed region."""
     dev = model.device
     prompts = prompts.to(dev)
     b = prompts.shape[0]
+    batch = {"tokens": prompts}
+    if frames is not None:
+        batch["frames"] = frames.to(dev)
     cache = model.init_cache(b, cache_len, cache_dtype)
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = fns.prefill(params, {"tokens": prompts}, cache)
+    logits, cache = fns.prefill(params, batch, cache)
     _sync(dev)
     t1 = time.perf_counter()
     tok = _greedy(logits)
@@ -154,6 +164,9 @@ def main(argv=None) -> int:
                          f"device (1x1) only")
 
     cfg = get_config(args.arch, smoke=args.smoke)
+    if cfg.enc_dec:
+        raise SystemExit("use python -m repro_torch.launch.whisper_serve "
+                         "for enc-dec")
     model = build_model(cfg, serve_policy(args.int8), device=args.device)
     params = model.init(seed=0)
     toks = lm_tokens(args.batch * args.prompt_len, cfg.vocab_size,

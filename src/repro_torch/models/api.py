@@ -1,6 +1,6 @@
 """Model protocol: one handle over the ported model families (the
 decoder-only ones: dense and MoE with GQA or MLA attention, xLSTM's SSM
-and zamba2's hybrid).
+and zamba2's hybrid; and the encoder-decoder family, whisper).
 
 ``build_model(cfg, policy, device=...)`` returns an :class:`LMModel`
 exposing ``init(seed)`` (randomly initialised parameters),
@@ -8,7 +8,10 @@ exposing ``init(seed)`` (randomly initialised parameters),
 ``loss(params, batch)`` (the LM cross-entropy, differentiable),
 ``init_cache(batch, seq_len)`` (the contiguous decode cache),
 ``prefill(params, batch, cache)`` and ``decode_step(params, cache,
-tokens)`` over either cache layout.  The precision policy lives on the
+tokens)`` over either cache layout.  An enc-dec model's ``batch`` also
+carries ``frames`` (B, n_frames, d_model), the precomputed conv-frontend
+embeddings, for ``loss`` and ``prefill``; its prefill encodes them once
+into the cache's cross K/V.  The precision policy lives on the
 model, not on the parameters, so one parameter set serves under several
 policies.  It runs on CUDA unless the caller passes ``device="cpu"``; on
 a machine without a card a CUDA model raises at construction.
@@ -65,16 +68,20 @@ class LMModel:
     def ctx(self, decode: bool = False) -> Ctx:
         return Ctx(policy=self.policy, decode=decode)
 
-    def init(self, seed: int = 0) -> T.LM:
+    def init(self, seed: int = 0) -> T.LM | T.EncDec:
         """Parameters drawn from a ``torch.Generator`` seeded with
         ``seed`` on the model's device (CPU and CUDA generators give
         different numbers for one seed)."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
+        if self.cfg.enc_dec:
+            return T.init_encdec(gen, self.cfg)
         return T.init_lm(gen, self.cfg)
 
-    def empty_params(self) -> T.LM:
+    def empty_params(self) -> T.LM | T.EncDec:
         """Uninitialised parameters on the model's device."""
+        if self.cfg.enc_dec:
+            return T.EncDec(self.cfg, self.device)
         return T.LM(self.cfg, self.device)
 
     def loss(self, params: T.LM, batch: dict, ctx: Ctx | None = None):
@@ -87,7 +94,12 @@ class LMModel:
         differentiable — unlike :meth:`prefill` and :meth:`decode_step`,
         which run without autograd."""
         ctx = ctx or self.ctx()
-        logits, _ = T.lm_apply(ctx, self.cfg, params, batch["tokens"])
+        if self.cfg.enc_dec:
+            enc_out = T.encdec_encode(ctx, self.cfg, params, batch["frames"])
+            logits, _ = T.encdec_decode(ctx, self.cfg, params,
+                                        batch["tokens"], enc_out=enc_out)
+        else:
+            logits, _ = T.lm_apply(ctx, self.cfg, params, batch["tokens"])
         nll, logz = _xent(self.cfg, logits, batch["labels"])
         mean_nll = torch.mean(nll)
         # z-loss for stability at scale
@@ -100,17 +112,38 @@ class LMModel:
                    dtype: torch.dtype = torch.bfloat16) -> dict:
         """The contiguous decode cache (:func:`transformer.init_lm_cache`)
         on the model's device; ``dtype`` reaches the attention caches,
-        never the SSM families' recurrent states (fp32)."""
+        never the SSM families' recurrent states (fp32).  An enc-dec
+        model's is :meth:`_encdec_empty_cache`."""
+        if self.cfg.enc_dec:
+            return self._encdec_empty_cache(batch, seq_len, dtype)
         return T.init_lm_cache(self.cfg, batch, seq_len, dtype, self.device)
+
+    def _encdec_empty_cache(self, batch: int, seq_len: int,
+                            dtype: torch.dtype) -> dict:
+        """The decoder's self cache and zero cross K/V
+        (:func:`transformer.init_encdec_cache` without frames)."""
+        return T.init_encdec_cache(self.ctx(), self.cfg, None, batch,
+                                   seq_len, dtype=dtype, device=self.device)
 
     @torch.no_grad()
     def prefill(self, params: T.LM, batch: dict, cache: dict | None = None,
                 ctx: Ctx | None = None):
         """Run ``batch["tokens"]`` (B, S) from position 0 and fill the
         contiguous ``cache`` (a fresh one of length S when omitted).
-        Returns (logits, cache)."""
+        Returns (logits, cache).
+
+        Enc-dec: the encoder runs over ``batch["frames"]`` once and its
+        cross K/V are written into the cache (4,096 slots and bf16 when
+        omitted, as the JAX package's) in place; the decoder then fills
+        the self cache from position 0."""
         ctx = ctx or self.ctx(decode=False)
         tokens = batch["tokens"]
+        if self.cfg.enc_dec:
+            if cache is None:
+                cache = self.init_cache(tokens.shape[0], 4096)
+            T.encode_cross_kv(ctx, self.cfg, params, batch["frames"], cache)
+            return T.encdec_decode(ctx, self.cfg, params, tokens,
+                                   cache=cache)
         if cache is None:
             cache = self.init_cache(tokens.shape[0], tokens.shape[1])
         return T.lm_apply(ctx, self.cfg, params, tokens, cache=cache)
@@ -123,6 +156,9 @@ class LMModel:
         or, with ``prefill_lens`` in the cache, a ragged admission
         prefill."""
         ctx = ctx or self.ctx(decode=True)
+        if self.cfg.enc_dec:
+            return T.encdec_decode(ctx, self.cfg, params, tokens,
+                                   cache=cache)
         return T.lm_apply(ctx, self.cfg, params, tokens, cache=cache)
 
 
@@ -130,5 +166,4 @@ def build_model(cfg: ArchConfig, policy: PrecisionPolicy | None = None,
                 device: str | torch.device | None = None) -> LMModel:
     if policy is None:
         policy = PrecisionPolicy(default="bf16", exempt=DEFAULT_EXEMPT)
-    T.check_ported(cfg)
     return LMModel(cfg=cfg, device=resolve_device(device), policy=policy)

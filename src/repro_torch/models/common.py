@@ -16,8 +16,10 @@ Conventions used across the model code:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -238,6 +240,22 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     xr2 = x2 * cos + x1 * sin
     out = torch.stack([xr1, xr2], dim=-1).reshape(x.shape)
     return out.to(x.dtype)
+
+
+# ------------------------------------------------------ sinusoid positions
+@functools.lru_cache(maxsize=4)
+def sinusoid_positions(n: int, d: int) -> torch.Tensor:
+    """(n, d) fp32 ``sin || cos`` position table on the CPU, computed as
+    the JAX package's (numpy float64 angles, one cast to fp32), so the
+    two are bit-equal.  Cached per ``(n, d)``; a model keeps its own copy
+    on its device (:class:`~repro_torch.models.transformer.EncDec`'s
+    ``enc_pos``/``dec_pos``), so a decode step neither rebuilds nor moves
+    it.  Callers must not write into it."""
+    pos = np.arange(n)[:, None]
+    i = np.arange(d // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * i / d)
+    emb = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.from_numpy(emb.astype(np.float32))
 
 
 # ------------------------------------------------------------- activations

@@ -90,19 +90,30 @@ class Attention(nn.Module):
             self.k_norm = Norm(cfg.norm, hd, dt, device)
 
 
-def _qkv(ctx: Ctx, cfg: ArchConfig, p: Attention, x: torch.Tensor):
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+def _q(ctx: Ctx, cfg: ArchConfig, p: Attention, x: torch.Tensor):
+    """The query projection of ``x`` (B, S, d): (B, S, H, hd)."""
     b, s, _ = x.shape
     q = linear(ctx, "attn/wq", x, p.wq, getattr(p, "bq", None))
-    k = linear(ctx, "attn/wk", x, p.wk, getattr(p, "bk", None))
-    v = linear(ctx, "attn/wv", x, p.wv, getattr(p, "bv", None))
-    q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, kv, hd)
-    v = v.reshape(b, s, kv, hd)
+    q = q.reshape(b, s, cfg.n_heads, cfg.hd)
     if cfg.qk_norm:
         q = norm_apply(cfg.norm, p.q_norm, q)
+    return q
+
+
+def _kv(ctx: Ctx, cfg: ArchConfig, p: Attention, x: torch.Tensor):
+    """The key and value projections of ``x`` (B, S, d): (B, S, KV, hd)
+    each; cross-attention projects the encoder's output with it."""
+    b, s, _ = x.shape
+    k = linear(ctx, "attn/wk", x, p.wk, getattr(p, "bk", None))
+    v = linear(ctx, "attn/wv", x, p.wv, getattr(p, "bv", None))
+    k = k.reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    if cfg.qk_norm:
         k = norm_apply(cfg.norm, p.k_norm, k)
-    return q, k, v
+    return k, v.reshape(b, s, cfg.n_kv_heads, cfg.hd)
+
+
+def _qkv(ctx: Ctx, cfg: ArchConfig, p: Attention, x: torch.Tensor):
+    return (_q(ctx, cfg, p, x), *_kv(ctx, cfg, p, x))
 
 
 def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -237,9 +248,14 @@ def mea_attention(q, k, v, q_positions, kv_positions, *,
 
 
 def attention(ctx: Ctx, cfg: ArchConfig, p: Attention, x, positions,
-              cache: dict | None = None, causal: bool = True):
+              cache: dict | None = None, causal: bool = True,
+              kv_override: tuple | None = None):
     """Full attention layer.  Returns (y, cache).
 
+    - ``kv_override``: ``(k, v, kv_positions)``, cross-attention over K/V
+      (B, F, KV, hd) the caller computed (the encoder's): never causal,
+      never cached and never roped here, chunked MEA over K/V expanded
+      to the H heads (the caller caches the encoder K/V);
     - ``cache is None``: chunked MEA over the sequence;
     - paged cache (``ctx.decode`` and ``"k_pages"`` in ``cache``): the
       ragged admission prefill when ``"prefill_lens"`` rides along, else
@@ -253,6 +269,13 @@ def attention(ctx: Ctx, cfg: ArchConfig, p: Attention, x, positions,
     """
     b, s, _ = x.shape
     h, hd = cfg.n_heads, cfg.hd
+    if kv_override is not None:
+        # only q is projected: the reference's k/v of x are discarded
+        k, v, kv_pos = kv_override
+        out = mea_attention(_q(ctx, cfg, p, x), _expand_kv(k, h),
+                            _expand_kv(v, h), positions, kv_pos, causal=False,
+                            chunk=cfg.attn_chunk, bf16_operands=cfg.mea_bf16)
+        return linear(ctx, "attn/wo", out.reshape(b, s, h * hd), p.wo), cache
     q, k, v = _qkv(ctx, cfg, p, x)
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)

@@ -1,5 +1,5 @@
 """Model assembly: decoder-only LMs of the dense, MoE, SSM and hybrid
-families.
+families, and the encoder-decoder family (whisper).
 
 Block taxonomy (``cfg.family``), as the JAX package's:
 
@@ -10,7 +10,11 @@ Block taxonomy (``cfg.family``), as the JAX package's:
                 +res] × L/2`` (:class:`XLSTMBlock`);
 - hybrid      : segments of ``hybrid_period`` Mamba2 blocks
                 (:class:`MambaBlock`), each followed by the ONE
-                weight-shared attention+MLP block ``shared`` (zamba2).
+                weight-shared attention+MLP block ``shared`` (zamba2);
+- audio (``cfg.enc_dec``, :class:`EncDec`): an encoder of dense blocks
+                (non-causal, no RoPE, sinusoid positions) over the
+                frames, and a decoder whose blocks add a cross-attention
+                over the encoder's output (:class:`DecBlock`).
 
 The JAX package stacks the block parameters on a leading layer axis and
 scans over them; here the blocks are an ``nn.ModuleList`` walked by a
@@ -19,11 +23,10 @@ quantity — the paged pool ``(L, P, ps, KV, D)``, the contiguous cache
 ``(L, B, S, KV, D)``, MLA's compressed ``ckv`` (L, B, S, kv_lora) and
 ``krope`` (L, B, S, rope), the recurrent states ``(L, B, ...)`` of the
 SSM mixers and zamba2's shared-attention cache, stacked once per
-application ``(L / period, B, S, KV, D)`` — and layer ``l`` receives the
-view ``stack[l]``, so the layers' in-place writes land in the stack (and
-the engine can swap pages out as ``pool[:, pages]``).
-
-The encoder-decoder family is not ported yet.
+application ``(L / period, B, S, KV, D)``, the enc-dec decoder's self
+cache and its ``cross_k``/``cross_v`` (L, B, F, KV, D) — and layer ``l``
+receives the view ``stack[l]``, so the layers' in-place writes land in
+the stack (and the engine can swap pages out as ``pool[:, pages]``).
 """
 
 from __future__ import annotations
@@ -35,16 +38,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.common import (Ctx, Norm, dense_init, embed_init,
-                                       linear, norm_apply)
-
-
-def check_ported(cfg: ArchConfig) -> None:
-    """Refuse the family this port does not build yet: encoder-decoder."""
-    if cfg.enc_dec or cfg.family not in ("dense", "vlm", "moe", "ssm",
-                                         "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: family={cfg.family} is not ported yet; this port "
-            f"covers the decoder-only families (dense, MoE, SSM, hybrid)")
+                                       linear, norm_apply,
+                                       sinusoid_positions)
 
 
 def padded_vocab(cfg: ArchConfig) -> int:
@@ -102,7 +97,6 @@ class LM(nn.Module):
     def __init__(self, cfg: ArchConfig, device=None,
                  gen: torch.Generator | None = None):
         super().__init__()
-        check_ported(cfg)
         vp = padded_vocab(cfg)
         emb = (embed_init(gen, vp, cfg.d_model, cfg.pdt) if gen is not None
                else torch.empty((vp, cfg.d_model), dtype=cfg.pdt,
@@ -408,3 +402,154 @@ def init_lm_cache(cfg: ArchConfig, batch: int, seq_len: int,
                     dtype, device)}
     return _attention_cache(cfg, cfg.n_layers, batch, seq_len, dtype,
                             device)
+
+
+# ======================================================== whisper enc-dec
+def _enc_cfg(cfg: ArchConfig) -> ArchConfig:
+    """Both stacks' attention: no RoPE, no sliding window."""
+    return cfg.replace(use_rope=False, sliding_window=0)
+
+
+class DecBlock(Block):
+    """A decoder block: :class:`Block`'s self-attention and MLP, and the
+    cross-attention over the encoder's output (``cross_norm``,
+    ``cross``)."""
+
+    def __init__(self, cfg: ArchConfig, device=None,
+                 gen: torch.Generator | None = None):
+        super().__init__(cfg, device, gen)
+        self.cross_norm = Norm(cfg.norm, cfg.d_model, cfg.pdt, device)
+        self.cross = L.Attention(cfg, device, gen)
+
+
+class EncDec(nn.Module):
+    """Parameters of an encoder-decoder model, named as the JAX package's
+    ``init_encdec`` pytree: ``enc_blocks.{i}.{attn_norm, attn, mlp_norm,
+    mlp}``, ``dec_blocks.{i}.{…, cross_norm, cross}``, ``embed`` (vocab,
+    d; also the tied ``lm_head``), ``enc_norm`` and ``dec_norm``.  With a
+    generator every weight is drawn in init order; without one the
+    module is allocated uninitialised for ``load_state_dict``."""
+
+    def __init__(self, cfg: ArchConfig, device=None,
+                 gen: torch.Generator | None = None):
+        super().__init__()
+        ecfg = _enc_cfg(cfg)
+        self.enc_blocks = nn.ModuleList(Block(ecfg, device, gen)
+                                        for _ in range(cfg.n_enc_layers))
+        self.dec_blocks = nn.ModuleList(DecBlock(ecfg, device, gen)
+                                        for _ in range(cfg.n_layers))
+        emb = (embed_init(gen, cfg.vocab_size, cfg.d_model, cfg.pdt)
+               if gen is not None
+               else torch.empty((cfg.vocab_size, cfg.d_model), dtype=cfg.pdt,
+                                device=device))
+        self.embed = L._param(emb)
+        self.enc_norm = Norm(cfg.norm, cfg.d_model, cfg.pdt, device)
+        self.dec_norm = Norm(cfg.norm, cfg.d_model, cfg.pdt, device)
+        # the sinusoid tables on the model's device, built once a model
+        # and freed with it; not saved (they follow from the config)
+        self.register_buffer("enc_pos", sinusoid_positions(
+            cfg.n_frames, cfg.d_model).to(device), persistent=False)
+        self.register_buffer("dec_pos", sinusoid_positions(
+            cfg.n_frames * 32, cfg.d_model).to(device), persistent=False)
+
+
+def init_encdec(gen: torch.Generator, cfg: ArchConfig) -> EncDec:
+    """Randomly initialised enc-dec parameters on ``gen``'s device."""
+    return EncDec(cfg, gen.device, gen)
+
+
+def encdec_encode(ctx: Ctx, cfg: ArchConfig, params: EncDec, frames):
+    """frames: (B, S, d) precomputed conv-frontend embeddings, S <=
+    n_frames.  Returns the encoder's output (B, S, d)."""
+    ecfg = _enc_cfg(cfg)
+    s = frames.shape[1]
+    x = frames.to(cfg.adt) + params.enc_pos[:s].to(cfg.adt)
+    positions = torch.arange(s, device=frames.device)
+    for blk in params.enc_blocks:
+        h = norm_apply(cfg.norm, blk.attn_norm, x)
+        a, _ = L.attention(ctx, ecfg, blk.attn, h, positions, causal=False)
+        x = x + a
+        h = norm_apply(cfg.norm, blk.mlp_norm, x)
+        x = x + L.mlp(ctx, cfg, blk.mlp, h)
+    return norm_apply(cfg.norm, params.enc_norm, x)
+
+
+def encdec_decode(ctx: Ctx, cfg: ArchConfig, params: EncDec, tokens,
+                  enc_out=None, cache=None):
+    """The decoder over ``tokens`` (B, S).  Returns (logits, cache).
+
+    Uncached (``cache is None``, the loss path): causal self-attention
+    over the tokens and cross K/V projected from ``enc_out`` on the fly.
+    With a cache (:func:`init_encdec_cache`) the cross-attention reads
+    its ``cross_k``/``cross_v``, so decode never touches the encoder;
+    a prefill (not ``ctx.decode``) fills the self cache from position 0,
+    a decode call attends it at its ``pos`` (flash_decode for one
+    token).  Positions index the decoder's ``n_frames * 32``-row sinusoid
+    table clamped to its last row, as the JAX package's gather clamps an
+    out-of-range index."""
+    ecfg = _enc_cfg(cfg)
+    x = params.embed[tokens].to(cfg.adt)
+    s = tokens.shape[1]
+    dev = x.device
+    positions = torch.arange(s, device=dev)
+    if cache is not None and ctx.decode:
+        positions = int(cache["self"]["pos"][0]) + positions
+    table = params.dec_pos
+    x = x + table[positions.clamp(max=table.shape[0] - 1)].to(cfg.adt)
+    frame_pos = torch.arange(cfg.n_frames, device=dev)
+    new_pos = []
+    for i, blk in enumerate(params.dec_blocks):
+        if cache is None:
+            sc = None
+            ck, cv = L._kv(ctx, ecfg, blk.cross, enc_out)
+        else:
+            sc = _attention_layer(cache["self"], i)
+            ck, cv = cache["cross_k"][i], cache["cross_v"][i]
+        h = norm_apply(cfg.norm, blk.attn_norm, x)
+        a, sc = L.attention(ctx, ecfg, blk.attn, h, positions, sc)
+        x = x + a
+        h = norm_apply(cfg.norm, blk.cross_norm, x)
+        a, _ = L.attention(ctx, ecfg, blk.cross, h, positions,
+                           kv_override=(ck, cv, frame_pos))
+        x = x + a
+        h = norm_apply(cfg.norm, blk.mlp_norm, x)
+        x = x + L.mlp(ctx, cfg, blk.mlp, h)
+        if sc is not None:
+            new_pos.append(sc["pos"])
+    new_cache = None
+    if cache is not None:
+        new_cache = dict(cache, self=_with_pos(cache["self"], new_pos))
+    x = norm_apply(cfg.norm, params.dec_norm, x)
+    logits = linear(ctx, "lm_head", x, params.embed.T)
+    return logits, new_cache
+
+
+def init_encdec_cache(ctx: Ctx, cfg: ArchConfig, params: EncDec | None,
+                      batch: int, seq_len: int, frames=None,
+                      dtype=torch.bfloat16, device=None) -> dict:
+    """The decoder's cache on ``device``: ``self`` — the contiguous
+    attention cache ``{k, v}`` (L, B, seq_len, KV, hd) with the per-layer
+    host ``pos`` (L,) — and ``cross_k``/``cross_v`` (L, B, n_frames, KV,
+    hd), zeros, or with ``frames`` filled by :func:`encode_cross_kv`."""
+    n = cfg.n_layers
+    kvshape = (n, batch, cfg.n_frames, cfg.n_kv_heads, cfg.hd)
+    cache = {"self": _attention_cache(_enc_cfg(cfg), n, batch, seq_len,
+                                      dtype, device),
+             "cross_k": torch.zeros(kvshape, dtype=dtype, device=device),
+             "cross_v": torch.zeros(kvshape, dtype=dtype, device=device)}
+    if frames is not None:
+        encode_cross_kv(ctx, cfg, params, frames, cache)
+    return cache
+
+
+def encode_cross_kv(ctx: Ctx, cfg: ArchConfig, params: EncDec, frames,
+                    cache: dict) -> None:
+    """Encode ``frames`` once and write each decoder layer's
+    cross-attention K/V of the encoder's output into ``cache``'s
+    ``cross_k``/``cross_v`` in place, cast to the cache's dtype."""
+    ecfg = _enc_cfg(cfg)
+    enc_out = encdec_encode(ctx, cfg, params, frames)
+    for i, blk in enumerate(params.dec_blocks):
+        k, v = L._kv(ctx, ecfg, blk.cross, enc_out)
+        cache["cross_k"][i] = k
+        cache["cross_v"][i] = v

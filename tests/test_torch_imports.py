@@ -26,6 +26,7 @@ bad = sorted(m for m in sys.modules
              or m == "repro" or m.startswith("repro."))
 assert not bad, bad
 assert "repro_torch.models.ssm" in names
+assert "repro_torch.launch.whisper_serve" in names
 print(len(names))
 """
 
@@ -39,8 +40,8 @@ def test_every_module_imports_without_jax():
     # tasks, models.cnn, kernels.{autotune,ops,ref} and the two kernels;
     # then serving.{cluster,journal,traffic} and tasks.serve; then optim,
     # optim.optimizers and tasks.{train_utils,pruning,scaling,quantization};
-    # then models.ssm
-    assert int(r.stdout.strip()) >= 72
+    # then models.ssm; then launch.whisper_serve
+    assert int(r.stdout.strip()) >= 73
 
 
 # the last two: atomic floating-point scatters, whose sums change order
@@ -53,6 +54,7 @@ def test_sources_name_no_jax_or_library_kernel(needle):
     scanned = [f for f in sorted(PORT.rglob("*"))
                if f.suffix in (".py", ".cu", ".cuh")]
     assert PORT / "models" / "ssm.py" in scanned
+    assert PORT / "launch" / "whisper_serve.py" in scanned
     hits = [str(f.relative_to(SRC)) for f in scanned
             if needle in f.read_text()]
     assert not hits, hits
@@ -81,9 +83,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_unported_paths_raise_not_implemented():
-    """What stays unported raises: the encoder-decoder family (the SSM
-    and hybrid families are ported and build).
-    The serial admission path, the INT8/FP8 levels and the write-ahead
+    """Nothing on these paths is refused any more: every registry config
+    builds through ``build_model`` (the encoder-decoder family too), and
+    the serial admission path, the INT8/FP8 levels and the write-ahead
     journal (a durable plan) are ported and run."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models.api import build_model
@@ -105,11 +107,9 @@ def test_unported_paths_raise_not_implemented():
     for level in ("int8", "fp8"):
         y = linear(Ctx(policy=PrecisionPolicy(default=level)), "m", x, w)
         assert torch.equal(y, torch.full((1, 2), 4.0))
-    with pytest.raises(NotImplementedError):
-        build_model(get_config("whisper_small", smoke=True), device="cpu")
-    for arch in ("xlstm_125m", "zamba2_2p7b"):
-        assert build_model(get_config(arch, smoke=True),
-                           device="cpu").cfg.family in ("ssm", "hybrid")
+    from repro_torch.configs.registry import all_configs
+    for cfg in all_configs(smoke=True).values():
+        assert build_model(cfg, device="cpu").cfg is cfg
 
 
 def test_params_from_jax_splits_blocks_and_reads_bf16():

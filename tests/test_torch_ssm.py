@@ -482,18 +482,39 @@ def test_param_tree_equals_jax(pair):
         np.testing.assert_array_equal(g.detach().numpy(), w)
 
 
-def test_check_ported_refuses_only_enc_dec():
+def test_check_ported_refuses_only_enc_dec(monkeypatch):
+    """``check_ported`` went with the enc-dec port; what the port still
+    refuses on the contiguous path is the enc-dec family alone, at the
+    serve CLI, as the JAX launcher does (it names the whisper entry
+    point).  Every other registry config gets past that check to
+    ``build_model``; and ``build_model`` gives each config its module
+    class, whisper-small's :class:`EncDec`."""
+    from repro_torch.launch import serve as tserve
+
+    class Built(Exception):
+        pass
+
+    def stop(cfg, *args, **kw):
+        raise Built(cfg.name)
+
+    assert not hasattr(TT, "check_ported")
+    monkeypatch.setattr(tserve, "build_model", stop)
     refused = set()
     for arch, cfg in all_configs(smoke=True).items():
-        try:
-            TT.check_ported(cfg)
-        except NotImplementedError:
+        with pytest.raises((SystemExit, Built)) as err:
+            tserve.main(["--arch", arch, "--smoke", "--device", "cpu"])
+        if err.type is SystemExit:
+            assert "repro_torch.launch.whisper_serve" in str(err.value)
             refused.add(arch)
+        params = build_model(cfg, device="cpu").empty_params()
+        assert isinstance(params, TT.EncDec if cfg.enc_dec else TT.LM), arch
     assert refused == {"whisper_small"}
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["whisper_small"])
 def test_paged_cache_refuses_both_families(arch):
+    """The paged cache refuses the SSM, hybrid and enc-dec families with
+    the reference's message."""
     kw = dict(page_size=8, n_pages=5, max_slots=2, max_blocks=2)
     with pytest.raises(ValueError) as jerr:
         jax_paged_cache(jax_config(arch, smoke=True), JaxPCfg(**kw))
