@@ -41,7 +41,8 @@ Phases, each printing one JSON line or more:
                decoder (B 8, H = KV = 12: g = 1, D = 64, 68 live slots of
                69; "tc", two launches and a subset of the batch bit for
                bit) and quant_matmul at its MLP (M = 8 and 12,000,
-               exactly equal);
+               exactly equal), and at starcoder2-3b's in phase 15's
+               training forward (M = 1,024, exactly equal);
 4. cpu_vs_gpu — Qwen2-7B at full width cut to 2 layers in fp32: the port
                on the CPU (plain versions) and on the card (kernels) must
                emit equal greedy tokens — the paged engine through a
@@ -69,8 +70,9 @@ Phases, each printing one JSON line or more:
                1,024); sub-rows at phase 13's: flash_decode at zamba2's
                D = 80 and quant_matmul at its shared MLP; at phase 14's:
                flash_decode at whisper-small's g = 1 and quant_matmul at
-               its MLP (M = 8 and 12,000); the
-               rows name the variant and tiles (decode: chunk and
+               its MLP (M = 8 and 12,000); at phase 15's:
+               quant_matmul at starcoder2-3b's training MLP (M = 1,024);
+               the rows name the variant and tiles (decode: chunk and
                chunks; quant_matmul: splits) that ran, and the decode
                rows split their device time by kernel (torch.profiler);
 8. tune      — the TUNE O-task's flow at full width: ``ModelGen``
@@ -183,7 +185,30 @@ Phases, each printing one JSON line or more:
                against the card in fp32 at whisper-small's width cut to
                whisper-smoke's 2 + 2 layers, greedy tokens equal on the
                decided rows.  Runs before phase 6, whose rows report its
-               launch counts.
+               launch counts;
+15. train    — the single-device trainer on starcoder2-3b (30 layers,
+               d_model 3,072, 24 heads over 2 KV, d_ff 12,288, vocab
+               49,152, bf16 weights, remat "dots"), batch 8 x 128 tokens
+               of ``lm_tokens``: (a) ``launch/train.main`` at full width
+               cut to 2 layers, 8 steps with a checkpoint every 3 and a
+               node failure injected at step 5, against the same run
+               without it — one restart, 2 steps replayed, final losses
+               within 1e-5, the final states compared bit for bit (and,
+               if they differ, the ops that break determinism named) —
+               then a resume after a stop (6 steps, then 10 over the same
+               directory: 4 run) and a bf16 leaf restored bit for bit,
+               with the checkpoint seconds and bytes; (b)
+               ``make_train_step`` on all 30 layers under bf16 and
+               int8-mlp, 1 warm-up and 3 timed steps each (step ms,
+               tokens/s, the share of 989 TFLOP/s as ``mfu``, peak
+               memory; quant_matmul launched 2 x 30 a step under
+               int8-mlp, all "tc", none in the backward; the MLP weights
+               move), and one step with remat "none" (its peak and step
+               time: what the selective checkpoint costs); (c)
+               (a)'s cut with gradient compression (finite losses,
+               nonzero residuals); (d) one fp32 step at full width on 1
+               layer, the CPU against the card.  Runs before phase 6,
+               whose rows report its launch counts.
 
 Then one ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line, and the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises and
@@ -198,11 +223,12 @@ kernels and host ops — and over 16 contiguous decode steps under each
 policy) runs only when asked.
 
 Usage: ``python3 chip_smoke.py [--phases
-1,2,3,4,5,6,8,9,10,11,12,13,14[,7]] [--src DIR]``; ``--phases 1,2,9,10``
+1,2,3,4,5,6,8,9,10,11,12,13,14,15[,7]] [--src DIR]``; ``--phases 1,2,9,10``
 builds the kernels and drives the SERVE and durability paths alone,
 ``--phases 1,2,3,11`` the design flow with training, ``--phases 1,2,12``
 the MoE family, ``--phases 1,2,3,13`` the SSM and hybrid families,
-``--phases 1,2,3,14`` the encoder-decoder family.
+``--phases 1,2,3,14`` the encoder-decoder family, ``--phases 1,2,3,15``
+the trainer.
 ``--src`` drives the ``repro_torch`` under another tree (e.g. the parent
 commit unpacked beside this one) with this script's phases; with
 ``--phases 1,6`` that times both commits' kernels with the same rows in one
@@ -469,9 +495,10 @@ def _contig_masks(cache_len: int) -> list:
 # swapped (M <= 64) and not, with and without a split; then granite's
 # tied lm_head under int8 (N = 49,155, odd), DeepSeek-V2's shared
 # experts at decode (M = 4) and prefill (M = 1,024), zamba2-2.7b's
-# shared MLP at decode (M = 8) and prefill (M = 4,096), and
+# shared MLP at decode (M = 8) and prefill (M = 4,096),
 # whisper-small's MLP at decode (M = 8) and in the encoder (M = 8 x
-# 1,500)
+# 1,500), and starcoder2-3b's MLP in phase 15's training forward (M = 8
+# x 128)
 QMM_SHAPES = ((8, 3584, 18944), (8, 18944, 3584), (4096, 3584, 18944),
               (4096, 18944, 3584), (3, 56, 40), (5, 100, 17),
               (130, 72, 200), (128, 152064, 3584), (3, 80, 40),
@@ -481,7 +508,8 @@ QMM_SHAPES = ((8, 3584, 18944), (8, 18944, 3584), (4096, 3584, 18944),
               (4, 5120, 3072), (1024, 5120, 3072), (4, 3072, 5120),
               (1024, 3072, 5120), (8, 2560, 10240), (8, 10240, 2560),
               (4096, 2560, 10240), (4096, 10240, 2560), (8, 768, 3072),
-              (8, 3072, 768), (12000, 768, 3072), (12000, 3072, 768))
+              (8, 3072, 768), (12000, 768, 3072), (12000, 3072, 768),
+              (1024, 3072, 12288), (1024, 12288, 3072))
 # the INT8 straight-through product (models/common.py::Int8MatmulSTE) at
 # the bench models' evaluation shapes and a Qwen2-7B training forward
 STE_SHAPES = ((512, 16, 64), (512, 32, 5), (512, 512, 10),
@@ -2760,6 +2788,17 @@ def phase_durable(model, params, device="cuda") -> dict:
 # costs 2 (bf16) + 2 (gradient) + 8 bytes (AdamW's two fp32 moments), so
 # 28 layers (7.6 B parameters) need ~91 GB before activations; 2 layers
 # (1.56 B parameters, the embedding and lm_head included) ~20 GB.
+@contextlib.contextmanager
+def _cut_config(module, **replace):
+    """``module.CONFIG`` replaced (the registry reads it) for the block."""
+    full = module.CONFIG
+    module.CONFIG = full.replace(**replace)
+    try:
+        yield full
+    finally:
+        module.CONFIG = full
+
+
 DESIGNFLOW_LM_LAYERS = 2
 # the card against the CPU, 3 steps from one CPU-drawn init (phase 11 d)
 CARD_CPU_STEPS = 3
@@ -2939,14 +2978,10 @@ def _qp_qwen2(**kw) -> dict:
     import torch
     from repro_torch.configs import qwen2_7b
     from repro_torch.models import layers, transformer
-    full = qwen2_7b.CONFIG
-    qwen2_7b.CONFIG = full.replace(n_layers=DESIGNFLOW_LM_LAYERS)
-    try:
+    with _cut_config(qwen2_7b, n_layers=DESIGNFLOW_LM_LAYERS) as full:
         meta, line = _designflow_bench("qwen2-7b", "QP",
                                        int8_modules=(layers, transformer),
                                        **kw)
-    finally:
-        qwen2_7b.CONFIG = full
     qm = line["quant_matmul"]
     rows = set(qm["int8_linears_by_m"])
     if qm["launches_tc"] != qm["launches"] or not qm["launches"] \
@@ -3064,6 +3099,464 @@ def phase_designflow(device="cuda", cfg=None) -> dict:
     return total
 
 
+# ------------------------------------------------------------- phase 15
+TRAIN_ARCH = "starcoder2_3b"
+# (a), (c): full width, 30 -> 2 layers (~343 M parameters; a checkpoint
+# of bf16 parameters and fp32 moments ~3.4 GB instead of ~30 GB)
+TRAIN_CUT_LAYERS = 2
+TRAIN_ARGS = ["--arch", TRAIN_ARCH, "--batch", "8", "--seq-len", "128",
+              "--ckpt-every", "3"]
+TRAIN_STEPS, TRAIN_FAIL_AT = 8, 5
+TRAIN_LOSS_TOL = 1e-5          # tests/test_runtime.py: final losses
+TRAIN_TOKENS = 8 * 128         # (b): one step's batch
+TRAIN_TIMED_STEPS = 3          # (b): after one warm-up step
+# (d): one step at full width, 1 layer, fp32, batch 2 x 128, lr 1e-3:
+# the loss within TRAIN_CARD_LOSS_RTOL, TRAIN_CARD_SHARE of the weights
+# within TRAIN_CARD_NEAR, every one within 2·lr (Adam's first step moves
+# a weight by about lr·sign(g); a gradient that is 0 in exact arithmetic,
+# the K bias's, is noise on both sides)
+TRAIN_CARD_LOSS_RTOL = 1e-5
+TRAIN_CARD_NEAR, TRAIN_CARD_SHARE = 1e-5, 0.95
+TRAIN_CARD_LR = 1e-3
+
+
+@contextlib.contextmanager
+def _timed_checkpoints(keep_step: int | None = None):
+    """Seconds the loop spends in ``CheckpointManager.save`` (the wait
+    for the previous write, then the host snapshot), in ``wait`` and in
+    ``restore``; the snapshots' seconds (device-to-host copies); the
+    background writes' seconds and bytes.  Every restore's bf16
+    ``params/embed`` is held against its bits in the file (the
+    reference's restore refuses bf16 leaves), and the host snapshot that
+    step ``keep_step`` writes is kept (``stats["kept"]``)."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import manager as M
+    stats = {"save_s": 0.0, "wait_s": 0.0, "restore_s": 0.0,
+             "snapshot_s": 0.0, "write_s": 0.0, "saves": 0, "restores": 0,
+             "bytes": 0, "bf16_restores": 0, "bf16_restores_exact": 0}
+    cls = M.CheckpointManager
+    orig = {name: getattr(cls, name)
+            for name in ("save", "wait", "restore", "_write")}
+    host = M._host
+
+    def timed_host(leaf):
+        t0 = time.perf_counter()
+        try:
+            return host(leaf)
+        finally:
+            stats["snapshot_s"] += time.perf_counter() - t0
+
+    def check_bf16(self, tree, meta):
+        if tree is None or meta["leaves"]["params/embed"]["dtype"] != \
+                "bfloat16":
+            return
+        path = Path(self.dir) / f"step_{meta['step']:08d}" / "arrays.npz"
+        with np.load(path) as z:
+            raw = z["params/embed"]
+        emb = tree["params"]["embed"]
+        stats["bf16_restores"] += 1
+        stats["bf16_restores_exact"] += emb.dtype == torch.bfloat16 and \
+            bool(np.array_equal(emb.view(torch.int16).numpy(), raw))
+
+    def timed(name, key, count=None):
+        def fn(self, *a, **kw):
+            t0 = time.perf_counter()
+            try:
+                out = orig[name](self, *a, **kw)
+            finally:
+                stats[key] += time.perf_counter() - t0
+                if count:
+                    stats[count] += 1
+            if name == "restore":
+                check_bf16(self, *out)
+            if name == "_write":
+                step, snapshot = a[0], a[1]
+                path = Path(self.dir) / f"step_{step:08d}" / "arrays.npz"
+                stats["bytes"] += path.stat().st_size \
+                    if path.exists() else 0
+                if step == keep_step:
+                    stats["kept"] = snapshot
+            return out
+        return fn
+
+    cls.save = timed("save", "save_s", "saves")
+    cls.wait = timed("wait", "wait_s")
+    cls.restore = timed("restore", "restore_s", "restores")
+    cls._write = timed("_write", "write_s")
+    M._host = timed_host
+    try:
+        yield stats
+    finally:
+        for name, fn in orig.items():
+            setattr(cls, name, fn)
+        M._host = host
+
+
+def _launch_train(args: list, keep_step: int | None = None) -> dict:
+    """``launch/train.main(args)``; its JSON report, with the wall time
+    and the checkpoint timings, and the host snapshot of ``keep_step``'s
+    checkpoint under ``"kept"``."""
+    import io
+    from repro_torch.launch import train
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with _timed_checkpoints(keep_step) as ck, \
+            contextlib.redirect_stdout(buf):
+        rc = train.main(args)
+    out = buf.getvalue()
+    report = json.loads(out[out.index("\n{") + 1:] if not out.startswith(
+        "{") else out)
+    if rc != 0:
+        raise AssertionError(f"phase 15: launch.train {args} -> {rc}")
+    kept = ck.pop("kept", None)
+    report.update(wall_s=time.perf_counter() - t0,
+                  checkpoint={**ck, "gb_written": ck["bytes"] / 1e9},
+                  log=[line for line in out.splitlines()
+                       if line.startswith(("failure", "straggler"))])
+    report.pop("ckpt_dir")
+    return report, kept
+
+
+def _snapshots_equal(a: dict, b: dict) -> dict:
+    """Two checkpoints' host snapshots (path -> numpy array, as written)
+    bit for bit: the paths whose bytes differ."""
+    import numpy as np
+    if sorted(a) != sorted(b):
+        return {"bit_equal": False, "differ": ["<paths>"], "n_differ": -1}
+    differ = [k for k in sorted(a) if a[k].dtype != b[k].dtype
+              or not np.array_equal(a[k].reshape(-1).view(np.uint8),
+                                    b[k].reshape(-1).view(np.uint8))]
+    return {"bit_equal": not differ, "differ": differ[:20],
+            "n_differ": len(differ)}
+
+
+# the aten ops of a backward whose CUDA kernels may add in any order
+SCATTER_OPS = ("index_put", "scatter", "index_add", "embedding_dense_backward",
+               "put_")
+
+
+def _determinism_probe() -> dict:
+    """Why two runs' states differ: one train step's gradients twice from
+    one state, as they run and under ``torch.use_deterministic_algorithms
+    (True)`` (its warnings name the ops it cannot make deterministic), and
+    the scatter-type ops the backward ran (their CUDA kernels accumulate
+    in launch order: the embedding's and the cross-entropy gather's
+    backward)."""
+    import warnings
+
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import ShardedBatcher, TokenSource
+    from repro_torch.models.api import build_model
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=TRAIN_CUT_LAYERS)
+    model = build_model(cfg)
+    params = model.init(0)
+    leaves = [p.requires_grad_(True) for p in params.parameters()]
+    batch = ShardedBatcher(TokenSource(cfg.vocab_size, 8, 128), None,
+                           prefetch=False).get(0)
+    seen = set()
+
+    class Ops(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.__name__
+            if any(s in name for s in SCATTER_OPS):
+                seen.add(name)
+            return func(*args, **(kwargs or {}))
+
+    def grads(record=False):
+        loss, _ = model.loss(params, batch)
+        with Ops() if record else contextlib.nullcontext():
+            g = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        return g
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    out = {"default_bit_equal": same(grads(True), grads())}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            out["deterministic_bit_equal"] = same(grads(), grads())
+        finally:
+            torch.use_deterministic_algorithms(False)
+    out["backward_scatter_ops"] = sorted(seen)
+    out["deterministic_warnings"] = sorted({str(w.message)[:160]
+                                            for w in caught})
+    del params, leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_fault_tolerance(root: Path) -> dict:
+    """(a) and (c) on the 2-layer cut: a run with an injected node
+    failure against one without, their final checkpoints bit for bit; a
+    resume after a stop; the same run with gradient compression.  Every
+    restore's bf16 leaf is held against its bits in the file."""
+    import shutil
+
+    from repro_torch.configs import starcoder2_3b
+    out = {}
+    last = TRAIN_STEPS - 1
+    with _cut_config(starcoder2_3b, n_layers=TRAIN_CUT_LAYERS) as full:
+        steps = ["--steps", str(TRAIN_STEPS)]
+        fail, fail_final = _launch_train(TRAIN_ARGS + steps + [
+            "--inject-failures", str(TRAIN_FAIL_AT),
+            "--ckpt-dir", str(root / "fail")], keep_step=last)
+        shutil.rmtree(root / "fail")
+        clean, clean_final = _launch_train(TRAIN_ARGS + steps + [
+            "--ckpt-dir", str(root / "clean")], keep_step=last)
+        shutil.rmtree(root / "clean")
+        # the failure at step 5 restores step 2's checkpoint: steps 3-4
+        # run twice
+        replayed = TRAIN_FAIL_AT - 3
+        bits = _snapshots_equal(fail_final, clean_final)
+        del fail_final, clean_final
+        out["a"] = {
+            "layers": TRAIN_CUT_LAYERS, "width": full.d_model,
+            "cut": f"{full.n_layers} -> {TRAIN_CUT_LAYERS} layers",
+            "with_failure": fail, "uninterrupted": clean,
+            "final_loss_diff": abs(fail["final_loss"] - clean["final_loss"]),
+            "final_states": bits}
+        if not bits["bit_equal"]:
+            out["a"]["determinism_probe"] = _determinism_probe()
+        ck = fail["checkpoint"]
+        if not (fail["restarts"] == 1 and clean["restarts"] == 0
+                and fail["steps_run"] == TRAIN_STEPS + replayed
+                and clean["steps_run"] == TRAIN_STEPS
+                and out["a"]["final_loss_diff"] < TRAIN_LOSS_TOL
+                and ck["bf16_restores"] == ck["bf16_restores_exact"] == 1):
+            raise AssertionError(f"phase 15 (a): {out['a']}")
+        # a resume after a stop: 6 steps, then 10 over the same directory
+        first, _ = _launch_train(TRAIN_ARGS + [
+            "--steps", "6", "--ckpt-dir", str(root / "resume")])
+        second, _ = _launch_train(TRAIN_ARGS + [
+            "--steps", "10", "--ckpt-dir", str(root / "resume")])
+        shutil.rmtree(root / "resume")
+        out["a"]["resume"] = {"first": first, "second": second}
+        ck = second["checkpoint"]
+        if not (first["steps_run"] == 6 and second["steps_run"] == 4
+                and second["restarts"] == 0
+                and ck["bf16_restores"] == ck["bf16_restores_exact"] == 1):
+            raise AssertionError(f"phase 15 (a) resume: {first} {second}")
+        # (c) the same config with int8 gradient compression: the final
+        # snapshot's residuals
+        comp, final = _launch_train(TRAIN_ARGS + [
+            "--steps", "4", "--ckpt-every", "4", "--grad-compression",
+            "--ckpt-dir", str(root / "comp")], keep_step=3)
+        shutil.rmtree(root / "comp")
+        res = [v for k, v in final.items() if k.startswith("residuals/")]
+        nonzero = sum(int((r != 0).sum()) for r in res)
+        out["c"] = {**comp, "residual_nonzero": nonzero,
+                    "residual_leaves": len(res)}
+        if not (comp["steps_run"] == 4 and nonzero > 0
+                and math.isfinite(comp["final_loss"])):
+            raise AssertionError(f"phase 15 (c): {out['c']}")
+    return out
+
+
+def _train_full_depth() -> tuple[dict, dict]:
+    """(b) ``make_train_step`` on all 30 layers at full width, remat
+    "dots" as configured, on one train state (seed 0): 1 warm-up and 3
+    timed steps under bf16, one more under torch.profiler, then 1 + 3
+    under int8-mlp (quant_matmul launched for each MLP product of each
+    forward, saved by the remat, not launched again in the backward;
+    the MLP weights must move), then one step with remat "none" for its
+    peak memory.  Returns (the line, the int8-mlp run's launches)."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import ShardedBatcher, TokenSource
+    from repro_torch.kernels import quant_matmul as qmm
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.optimizers import adamw, cosine_schedule
+    from repro_torch.quant.policy import PrecisionPolicy
+    from repro_torch.runtime.train_loop import (init_train_state,
+                                                make_train_step)
+    cfg = get_config(TRAIN_ARCH)
+    batcher = ShardedBatcher(TokenSource(cfg.vocab_size, 8, 128), None,
+                             prefetch=False)
+    n_steps = 1 + TRAIN_TIMED_STEPS
+    opt = adamw(cosine_schedule(3e-4, 10, 2 * n_steps + 2))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    state = init_train_state(build_model(cfg), opt, 0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    out = {"layers": cfg.n_layers, "remat": cfg.remat, "params": n_params,
+           "init_s": time.perf_counter() - t0,
+           "state_gb": torch.cuda.memory_allocated() / 1e9}
+    launches, step = {}, 0
+    int8 = PrecisionPolicy(default="bf16").with_rule("*mlp*", "int8")
+    for name, c, policy, steps in (
+            ("bf16", cfg, None, n_steps), ("int8-mlp", cfg, int8, n_steps),
+            ("bf16_remat_none", cfg.replace(remat="none"), None, 1)):
+        train_step = make_train_step(build_model(c, policy=policy), opt)
+        # the first and last blocks' MLP weights, on the host
+        ends = [state["params"].blocks[i] for i in (0, -1)]
+        mlp0 = {k: [getattr(b.mlp, k).detach().to("cpu", copy=True)
+                    for b in ends] for k in ("w_up", "w_down")}
+        batches = [batcher.get(step + s) for s in range(steps)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        times, losses = [], []
+        for batch in batches:
+            t0 = time.perf_counter()
+            state, metrics = train_step(state, batch)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        step += steps
+        counts, tc = _read_counts(), _read_tc_counts()
+        run = {"steps": steps, "losses": losses,
+               "step_ms": [t * 1e3 for t in times],
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if steps > 1:
+            ms = statistics.median(times[1:]) * 1e3
+            run.update(step_ms_median=ms,
+                       tokens_per_s=TRAIN_TOKENS / ms * 1e3,
+                       mfu=6 * n_params * TRAIN_TOKENS / (ms / 1e3)
+                       / H100_BF16_FLOPS)
+        want = 2 * cfg.n_layers * steps if policy else 0
+        run["launches"] = {k: v for k, v in counts.items() if v}
+        moved = {k: min(float((getattr(b.mlp, k).detach().cpu().float()
+                               - a.float()).abs().max())
+                        for a, b in zip(v, ends))
+                 for k, v in mlp0.items()}
+        ok = counts["quant_matmul"] == want and tc["quant_matmul"] == want \
+            and sum(counts.values()) == want \
+            and all(math.isfinite(x) for x in losses) \
+            and all(d > 0 for d in moved.values())
+        run["mlp_min_max_delta"] = moved
+        if policy:
+            run.update(quant_matmul_expected=want,
+                       variant=qmm.last_launch.get("variant"))
+            launches = counts
+        if name == "bf16":
+            run["profile"] = _profile_train_step(train_step, state,
+                                                 batcher.get(step))
+            step += 1
+        out[name] = run
+        if not ok:
+            raise AssertionError(f"phase 15 (b) {name}: {run}")
+        del train_step, mlp0, ends, batches
+    del state
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def _profile_train_step(train_step, state, batch) -> dict:
+    """torch.profiler over one more train step, device activity only
+    (host ops would add ≈ 20 s of trace processing): the device's busy
+    time and idle share, the launches and the top kernels (the table in
+    ``chiprun_out/train_profile_bf16.txt``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    t1 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out = {"wall_s": wall,
+           **_profile_summary(prof, wall, "train_profile_bf16.txt")}
+    out["profile_s"] = time.perf_counter() - t1
+    return out
+
+
+def _train_card_vs_cpu() -> dict:
+    """(d) One ``make_train_step`` at full width, 1 layer, fp32 (weights,
+    activations and products), from one CPU-drawn init and one batch, on
+    the CPU (plain versions) and on the card."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import TokenSource
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.quant.policy import PrecisionPolicy
+    from repro_torch.runtime.train_loop import (init_train_state,
+                                                make_train_step)
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=1, param_dtype="float32",
+                                         act_dtype="float32")
+    policy = PrecisionPolicy(default="fp32")
+    batch = TokenSource(cfg.vocab_size, 2, 128).batch_at(0)
+    opt = adamw(TRAIN_CARD_LR)
+    runs = {}
+    cpu_model = build_model(cfg, policy=policy, device="cpu")
+    state = init_train_state(cpu_model, opt, 0)
+    init = {k: v.clone() for k, v in state["params"].state_dict().items()}
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, policy=policy, device=dev)
+        if dev == "cuda":
+            params = model.empty_params()
+            params.load_state_dict(init)
+            state = {"params": params,
+                     "opt": opt.init(params.param_tree(per_block=True))}
+        step = make_train_step(model, opt)
+        state, metrics = step(state, {
+            k: torch.from_numpy(v).long().to(model.device)
+            for k, v in batch.items()})
+        runs[dev] = (float(metrics["loss"]), float(metrics["grad_norm"]),
+                     {k: v.detach().cpu() for k, v in
+                      state["params"].state_dict().items()})
+        del state, step
+    (lc, gc, pc), (lg, gg, pg) = runs["cpu"], runs["cuda"]
+    diffs = torch.cat([(pc[k] - pg[k]).abs().reshape(-1) for k in pc])
+    near = float((diffs <= TRAIN_CARD_NEAR).float().mean())
+    out = {"layers": 1, "dtype": "float32", "batch": [2, 128],
+           "loss": [lc, lg], "loss_rel": abs(lc - lg) / abs(lc),
+           "grad_norm": [gc, gg], "weight_max_abs": float(diffs.max()),
+           "share_within": [TRAIN_CARD_NEAR, near],
+           "tol": {"loss_rel": TRAIN_CARD_LOSS_RTOL,
+                   "share": TRAIN_CARD_SHARE, "max": 2 * TRAIN_CARD_LR}}
+    if not (out["loss_rel"] <= TRAIN_CARD_LOSS_RTOL
+            and near >= TRAIN_CARD_SHARE
+            and out["weight_max_abs"] <= 2 * TRAIN_CARD_LR + 1e-6):
+        raise AssertionError(f"phase 15 (d): {out}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train() -> dict:
+    """Phase 15, the single-device trainer on starcoder2-3b: (a) fault
+    tolerance and (c) gradient compression through ``launch/train.main``
+    on the 2-layer cut, in a temporary directory that the phase
+    removes; (b) ``make_train_step`` at full depth, bf16 and int8-mlp;
+    (d) the card against the CPU.  The counts are set to 0 before (b)'s
+    int8-mlp run and read after it (the bf16 trainer launches no kernel,
+    which (a), (b) and (c) check); returns those."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        _zero_counts()
+        ft = _train_fault_tolerance(root)
+        bf16_launches = {k: v for k, v in _read_counts().items() if v}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if bf16_launches:
+        raise AssertionError(f"phase 15 (a, c): kernels launched under "
+                             f"bf16: {bf16_launches}")
+    emit({"phase": "train", "part": "a", **ft["a"],
+          "wall_s": time.perf_counter() - t0})
+    emit({"phase": "train", "part": "c", **ft["c"]})
+    t1 = time.perf_counter()
+    full, launches = _train_full_depth()
+    emit({"phase": "train", "part": "b", "arch": TRAIN_ARCH, **full,
+          "wall_s": time.perf_counter() - t1})
+    t1 = time.perf_counter()
+    cmp = _train_card_vs_cpu()
+    emit({"phase": "train", "part": "d", **cmp,
+          "wall_s": time.perf_counter() - t1})
+    emit({"phase": "train_done", "launches": launches,
+          "wall_s": time.perf_counter() - t0})
+    return launches
+
+
 PREFILL_RANGE = "burst_prefill"
 # the enc-dec decode profile's ranges over a decoder layer's parts
 PART_RANGES = ("layer_self_attention", "layer_cross_attention",
@@ -3123,6 +3616,7 @@ def _profile_summary(prof, wall: float, table: str) -> dict:
     dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
            and e.self_device_time_total > 0 and e.key not in USER_RANGES]
     busy_us = sum(e.self_device_time_total for e in dev)
+    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
     top_dev = sorted(dev, key=lambda e: e.self_device_time_total,
                      reverse=True)[:15]
     top_cpu = sorted(events, key=lambda e: e.self_cpu_time_total,
@@ -3133,6 +3627,7 @@ def _profile_summary(prof, wall: float, table: str) -> dict:
     return {"device_busy_s": busy_us / 1e6,
             "device_idle_share": 1 - busy_us / 1e6 / wall,
             "device_events": sum(e.count for e in dev),
+            "cuda_launch_calls": launches,
             "top_device": [[e.key[:60], round(e.self_device_time_total / 1e3,
                                               3), e.count] for e in top_dev],
             "top_host": [[e.key[:60], round(e.self_cpu_time_total / 1e3, 3),
@@ -3288,14 +3783,16 @@ def _device_ms_by_kernel(fn, flush, reps: int = 20,
 
 
 def phase_timing(launches: dict, families: dict, hybrid: dict,
-                 encdec: dict) -> list:
+                 encdec: dict, train: dict) -> list:
     """Kernel rows at the phase-5 shapes (``launches``: phases 5 and 8),
     with sub-rows at granite-moe-1b-a400m's burst and ``generate``
     shapes and DeepSeek-V2's shared experts (``families``: phase 12's
     launches), at zamba2-2.7b's shared block (``hybrid``: phase 13's
     launches): flash_decode at D = 80 and quant_matmul at its MLP, and
     at whisper-small (``encdec``: phase 14's launches): flash_decode at
-    g = 1 over 68 live slots and quant_matmul at its MLP."""
+    g = 1 over 68 live slots and quant_matmul at its MLP, and at
+    starcoder2-3b's training forward (``train``: phase 15's launches):
+    quant_matmul at its MLP."""
     import torch
     c = SERVE
     gen = torch.Generator().manual_seed(2)
@@ -3332,7 +3829,7 @@ def phase_timing(launches: dict, families: dict, hybrid: dict,
     row["whisper"] = {key: sub[key] for key in SUB_ROW_KEYS + ("launches",)}
     rows.append(row)
     rows.append(_quant_matmul_row(gen, launches, flush, families, hybrid,
-                                  encdec))
+                                  encdec, train))
     rows.append(_block_sparse_row(launches, flush))
     rows.append(_flash_attention_row(launches, flush, sdpa_gqa))
     emit({"phase": "timing", "kernels": rows})
@@ -3612,6 +4109,10 @@ QMM_ENCDEC_ROWS = (("whisper_up_8", 8, 768, 3072),
                    ("whisper_up_12000", 12000, 768, 3072),
                    ("whisper_down_8", 8, 3072, 768),
                    ("whisper_down_12000", 12000, 3072, 768))
+# starcoder2-3b's MLP in phase 15's int8-mlp training forward (8 x 128
+# tokens): up and down
+QMM_TRAIN_ROWS = (("starcoder2_up_1024", 1024, 3072, 12288),
+                  ("starcoder2_down_1024", 1024, 12288, 3072))
 QMM_SUB_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "library_note", "quantize_ms", "wrapper_ms", "max_abs_err",
                 "shapes", "variant", "tiles", "swap", "splits",
@@ -3619,11 +4120,12 @@ QMM_SUB_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
 
 
 def _quant_matmul_row(gen, launches, flush, families, hybrid,
-                      encdec) -> dict:
+                      encdec, train) -> dict:
     """The int8 product on operands already quantized, at each shape of
     :data:`QMM_ROWS`, :data:`QMM_FAMILY_ROWS` (their ``launches`` from
     phase 12's ``families``), :data:`QMM_HYBRID_ROWS` (phase 13's
-    ``hybrid``) and :data:`QMM_ENCDEC_ROWS` (phase 14's ``encdec``),
+    ``hybrid``), :data:`QMM_ENCDEC_ROWS` (phase 14's ``encdec``) and
+    :data:`QMM_TRAIN_ROWS` (phase 15's ``train``),
     with the variant, tiles and splits that ran,
     and the weight quantization that every call also pays
     (``quantize_ms``) and the whole wrapper (``wrapper_ms``) timed beside
@@ -3634,9 +4136,9 @@ def _quant_matmul_row(gen, launches, flush, families, hybrid,
     from repro_torch.kernels import quant_matmul as qmm
     row = None
     for label, m, k, n in (QMM_ROWS + QMM_FAMILY_ROWS + QMM_HYBRID_ROWS
-                           + QMM_ENCDEC_ROWS):
-        counts = {"dsv2": families, "zamba2": hybrid,
-                  "whisper": encdec}.get(label.split("_")[0], launches)
+                           + QMM_ENCDEC_ROWS + QMM_TRAIN_ROWS):
+        counts = {"dsv2": families, "zamba2": hybrid, "whisper": encdec,
+                  "starcoder2": train}.get(label.split("_")[0], launches)
         x = torch.randn((m, k), generator=gen).to(torch.bfloat16).cuda()
         w = (0.02 * torch.randn((k, n), generator=gen)).to(
             torch.bfloat16).cuda()
@@ -3700,7 +4202,8 @@ def _row(name, source, replaces, launches, err, tol, kernel, plain, lib,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,8,9,10,11,12,13,14",
+    ap.add_argument("--phases",
+                    default="1,2,3,4,5,6,8,9,10,11,12,13,14,15",
                     help="comma-separated phases to run (default: all "
                          "but 7)")
     ap.add_argument("--src", default=str(ROOT / "src"),
@@ -3731,37 +4234,44 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     (OUT / "chip_smoke.jsonl").unlink(missing_ok=True)
+    phase_s = {}        # each phase's wall seconds, for the done line
+
+    def run(phase: int, fn, *args, default=None):
+        if phase not in phases:
+            return default
+        t1 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            phase_s[phase] = round(time.perf_counter() - t1, 1)
+
     smi = phase_device(src)
-    if 2 in phases:
-        phase_build()
-    if 3 in phases:
-        phase_kernels()
-    if 4 in phases:
-        phase_cpu_vs_gpu()
-    launches = {}
-    if 5 in phases:
-        launches = phase_serve()
-    tune_launches = phase_tune() if 8 in phases else {}
-    designflow_launches = phase_designflow() if 11 in phases else {}
-    families_launches = phase_families() if 12 in phases else {}
-    hybrid_launches = phase_ssm_hybrid() if 13 in phases else {}
-    encdec_launches = phase_encdec() if 14 in phases else {}
+    run(2, phase_build)
+    run(3, phase_kernels)
+    run(4, phase_cpu_vs_gpu)
+    launches = run(5, phase_serve, default={})
+    tune_launches = run(8, phase_tune, default={})
+    designflow_launches = run(11, phase_designflow, default={})
+    families_launches = run(12, phase_families, default={})
+    hybrid_launches = run(13, phase_ssm_hybrid, default={})
+    encdec_launches = run(14, phase_encdec, default={})
+    train_launches = run(15, phase_train, default={})
     flow_launches, durable_launches = {}, {}
     if 9 in phases or 10 in phases:
         model = params = None
         if 9 in phases:
-            flow_launches, model, params = phase_serveflow()
+            flow_launches, model, params = run(9, phase_serveflow)
         if 10 in phases:
             if model is None:
                 model, params = _durable_model()
-            durable_launches = phase_durable(model, params)
+            durable_launches = run(10, phase_durable, model, params)
         del model, params
         torch.cuda.empty_cache()
     # block_sparse_matmul and flash_attention run on phase 8's path only
     for name in ("block_sparse_matmul", "flash_attention"):
         launches[name] = tune_launches.get(name, 0)
-    rows = (phase_timing(launches, families_launches, hybrid_launches,
-                         encdec_launches) if 6 in phases else [])
+    rows = run(6, phase_timing, launches, families_launches,
+               hybrid_launches, encdec_launches, train_launches, default=[])
     for row in rows:
         row["tune_launches"] = tune_launches.get(row["name"], 0)
         row["serveflow_launches"] = flow_launches.get(row["name"], 0)
@@ -3770,9 +4280,10 @@ def main(argv=None) -> int:
         row["families_launches"] = families_launches.get(row["name"], 0)
         row["ssm_hybrid_launches"] = hybrid_launches.get(row["name"], 0)
         row["encdec_launches"] = encdec_launches.get(row["name"], 0)
-    if 7 in phases:
-        phase_profile()
-    emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 3)})
+        row["train_launches"] = train_launches.get(row["name"], 0)
+    run(7, phase_profile)
+    emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 3),
+          "phase_s": phase_s})
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

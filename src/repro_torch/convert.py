@@ -23,12 +23,21 @@ nested dicts included:
 (``models/cnn.py``: ``{"fc0": {"w", "b"}}``, ``{"conv0": {"w", "bn":
 {...}}}``) and keeps their nesting.  bf16 leaves are read through their
 16-bit patterns, so no bf16 numpy dtype is needed here.
+
+The other way, for checkpoints: :func:`state_to_jax` lays a decoder-only
+LM's train state out as the JAX package's train state (``params`` keyed
+as its pytree with each block leaf one :class:`Stacked` (L, …) leaf,
+``opt/step``, ``opt/m``, ``opt/v``, ``residuals``), and
+:func:`state_from_jax` takes such a tree — the port's own checkpoints or
+the JAX package's — back into a train state.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.optim.optimizers import tree_map, tree_unflatten
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:
@@ -90,3 +99,93 @@ def cache_from_jax(tree) -> dict:
         else:
             out[name] = _tensor(np.asarray(leaf))
     return out
+
+
+# ----------------------------------------------------------- train state
+class Stacked(list):
+    """The per-block tensors of one block parameter (or of its gradient,
+    moment or residual), in layer order: one leaf of the JAX layout,
+    stacked (L, …) when it is copied to the host
+    (``checkpoint/manager.py``), never on the device."""
+
+
+def _jax_layout(tree):
+    """A per-block tree (``LM.param_tree(per_block=True)``'s structure)
+    with each list of per-block tensors as one :class:`Stacked` leaf."""
+    if isinstance(tree, dict):
+        return {k: _jax_layout(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return Stacked(tree)
+    return tree
+
+
+def state_to_jax(state: dict) -> dict:
+    """A train state (``runtime/train_loop.py``: ``{"params": LM, "opt":
+    {"step": int, "m": tree, "v": tree}[, "residuals": tree]}``) as the
+    JAX package's train state: the same paths and shapes, each stacked
+    leaf a :class:`Stacked` of the device tensors (nothing is copied
+    here), ``opt/step`` an int32 0-d tensor."""
+    out = {"params": _jax_layout(state["params"].param_tree(per_block=True))}
+    opt = {k: v for k, v in state["opt"].items() if k != "step"}
+    out["opt"] = dict(_jax_layout(opt), step=torch.tensor(
+        int(state["opt"]["step"]), dtype=torch.int32))
+    if "residuals" in state:
+        out["residuals"] = _jax_layout(state["residuals"])
+    return out
+
+
+def _pairs(template, tree, path: str):
+    """(template leaf, stored leaf) pairs of ``template`` (a per-block
+    tree) and ``tree`` (the JAX layout, CPU tensors): a list of the
+    template pairs with the rows of the stacked leaf.  Every stored
+    leaf's shape and dtype must be the template's."""
+    if isinstance(template, dict):      # in tree_leaves' order
+        for k in sorted(template):
+            yield from _pairs(template[k], tree[k], f"{path}/{k}")
+        return
+    want = template
+    if isinstance(template, list):
+        want = torch.empty((len(template), *template[0].shape),
+                           dtype=template[0].dtype, device="meta")
+    if tuple(tree.shape) != tuple(want.shape) or tree.dtype != want.dtype:
+        raise ValueError(f"checkpoint leaf {path}: {tree.dtype} "
+                         f"{tuple(tree.shape)}, the model wants {want.dtype} "
+                         f"{tuple(want.shape)}")
+    if isinstance(template, list):
+        yield from zip(template, tree)
+    else:
+        yield template, tree
+
+
+@torch.no_grad()
+def state_from_jax(tree: dict, model) -> dict:
+    """A train state from a tree in the JAX package's layout (nested
+    dicts of CPU tensors, as ``CheckpointManager.restore`` returns them):
+    the parameters loaded into ``model.empty_params()``, the optimizer
+    state and residuals in the per-block structure on the model's
+    device.  Every leaf's shape and dtype must be the model's."""
+    params = model.empty_params()
+    template = params.param_tree(per_block=True)
+    for p, stored in _pairs(template, tree["params"], "params"):
+        p.copy_(stored)
+
+    def fp32_tree(node, path):
+        return tree_unflatten(template, [
+            stored.to(model.device)
+            for _, stored in _pairs(_f32(template), node, path)])
+
+    opt = tree["opt"]
+    state = {"params": params, "opt": {"step": int(opt["step"])}}
+    for k, v in opt.items():
+        if k != "step":
+            state["opt"][k] = fp32_tree(v, f"opt/{k}")
+    if "residuals" in tree:
+        state["residuals"] = fp32_tree(tree["residuals"], "residuals")
+    return state
+
+
+def _f32(template):
+    """``template``'s structure with fp32 meta leaves: the shapes and
+    dtype of the optimizer's moments and the residuals."""
+    return tree_map(lambda t: torch.empty(t.shape, dtype=torch.float32,
+                                          device="meta"), template)

@@ -25,8 +25,12 @@ for bit :func:`int8_matmul_plain`.  ``launches`` counts every launch,
 ``launches_tc`` those of the tensor-core variant, and ``last_launch``
 holds the variant, tiles and splits of the last one.
 
-A CPU tensor goes to :func:`quant_matmul_plain`; a CUDA tensor goes to
-the kernel or raises.
+A CPU tensor goes to the plain version (:func:`int8_matmul_plain` after
+the same quantization, :func:`quant_matmul_plain`'s bits); a CUDA tensor
+goes to the kernel or raises.  The product on quantized operands is the
+op ``torch.ops.repro_torch.int8_matmul``, so that a selective activation
+checkpoint (``models/transformer.py::_remat``, ``"dots"``) sees it, keeps
+its output and does not launch it again in the backward.
 """
 
 from __future__ import annotations
@@ -121,9 +125,14 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
                          f"{w.dtype}")
 
 
-def int8_matmul(xq, xs, wq, ws) -> torch.Tensor:
-    """Launch the kernel on quantized CUDA operands (the layout of
-    :func:`quantize_operands`); (M, N) fp32."""
+@torch.library.custom_op("repro_torch::int8_matmul", mutates_args=())
+def int8_matmul(xq: torch.Tensor, xs: torch.Tensor, wq: torch.Tensor,
+                ws: torch.Tensor) -> torch.Tensor:
+    """The product on quantized operands (the layout of
+    :func:`quantize_operands`): the kernel on CUDA tensors, the plain
+    version on CPU ones; (M, N) fp32."""
+    if xq.device.type == "cpu":
+        return int8_matmul_plain(xq, xs, wq, ws)
     return _launch(xq, xs, wq, ws)
 
 
@@ -181,7 +190,6 @@ def _launch(xq, xs, wq, ws, splits: int | None = None) -> torch.Tensor:
 def quant_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (M, K) float; w: (K, N) float.  Returns (M, N) fp32 ≈ x @ w
     computed through int8 with int32 accumulation."""
-    if x.device.type == "cpu":
-        return quant_matmul_plain(x, w)
-    _check(x, w)
+    if x.device.type != "cpu":
+        _check(x, w)
     return int8_matmul(*quantize_operands(x, w))

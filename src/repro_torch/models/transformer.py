@@ -31,8 +31,12 @@ the stack (and the engine can swap pages out as ``pool[:, pages]``).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
@@ -40,6 +44,52 @@ from repro_torch.models import ssm as S
 from repro_torch.models.common import (Ctx, Norm, dense_init, embed_init,
                                        linear, norm_apply,
                                        sinusoid_positions)
+
+
+# ----------------------------------------------------------------- remat
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``"dots"``: save the outputs of plain matrix products — ``mm`` and
+    ``addmm``, products with no batch dimension, as JAX's
+    ``dots_with_no_batch_dims_saveable`` — and the int8 product's
+    (``quant_matmul``'s kernel launch, an op of its own so that the
+    policy sees it and the backward does not launch it again); recompute
+    the rest (the attention's batched products among it)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+              torch.ops.repro_torch.int8_matmul.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_dots_context = functools.partial(create_selective_checkpoint_contexts,
+                                  _dots_policy)
+
+
+def _remat(cfg: ArchConfig, fn):
+    """``fn`` (one block's apply) under ``cfg.remat``, the counterpart of
+    the JAX package's ``_remat``: ``"none"`` keeps every activation for
+    the backward; ``"full"`` keeps the block's inputs and recomputes the
+    rest; ``"dots"`` also keeps the products' outputs (:func:`_dots_policy`);
+    ``"dots+moe"`` is ``"dots"`` on one device (its extra names are the
+    expert-parallel all-to-all's, which one device does not run).  It
+    applies only while autograd records the block (grad enabled, and its
+    input or one of its parameters requiring grad): the cached paths and
+    evaluation run without it.  The result is bit for bit the same; only
+    what the backward keeps and recomputes changes."""
+    if cfg.remat == "none":
+        return fn
+    kw = {} if cfg.remat == "full" else {"context_fn": _dots_context}
+
+    def records(args) -> bool:
+        return torch.is_grad_enabled() and any(
+            a.requires_grad if isinstance(a, torch.Tensor)
+            else isinstance(a, nn.Module)
+            and any(p.requires_grad for p in a.parameters()) for a in args)
+
+    def wrapped(*args):
+        if not records(args):
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return wrapped
 
 
 def padded_vocab(cfg: ArchConfig) -> int:
@@ -254,9 +304,10 @@ def _hybrid_stack(ctx: Ctx, cfg: ArchConfig, params: LM, x, positions,
     segment).  Returns (x, cache)."""
     period = cfg.hybrid_period
     new_pos = []
+    block_apply = _remat(cfg, mamba_block_apply)
     for i, blk in enumerate(params.blocks):
         lc = None if cache is None else _layer(cache["mamba"], i)
-        x, _ = mamba_block_apply(ctx, cfg, blk, x, positions, lc)
+        x, _ = block_apply(ctx, cfg, blk, x, positions, lc)
         if (i + 1) % period:
             continue
         sc = None if cache is None else _attention_layer(cache["shared"],
@@ -309,13 +360,15 @@ def lm_apply(ctx: Ctx, cfg: ArchConfig, params: LM, tokens, positions=None,
     if cfg.family == "hybrid":
         x, new_cache = _hybrid_stack(ctx, cfg, params, x, positions, cache)
     elif cfg.family == "ssm":
+        block_apply = _remat(cfg, xlstm_block_apply)
         for i, blk in enumerate(params.blocks):
             lc = None if cache is None else _layer(cache["blocks"], i)
-            x, _ = xlstm_block_apply(ctx, cfg, blk, x, positions, lc)
+            x, _ = block_apply(ctx, cfg, blk, x, positions, lc)
         new_cache = None if cache is None else {
             "blocks": cache["blocks"], "pos": int(cache["pos"]) + s}
     else:
         new_pos = []
+        block_apply = _remat(cfg, lm_block_apply)
         for i, blk in enumerate(params.blocks):
             lc = None
             if paged:
@@ -332,7 +385,7 @@ def lm_apply(ctx: Ctx, cfg: ArchConfig, params: LM, tokens, positions=None,
                     lc["prefill_lens"] = cache["prefill_lens"]
             elif cache is not None:
                 lc = _attention_layer(cache, i)
-            x, lc = lm_block_apply(ctx, cfg, blk, x, positions, lc)
+            x, lc = block_apply(ctx, cfg, blk, x, positions, lc)
             if lc is not None and not paged:
                 new_pos.append(lc["pos"])
         new_cache = None
@@ -461,17 +514,36 @@ def init_encdec(gen: torch.Generator, cfg: ArchConfig) -> EncDec:
 def encdec_encode(ctx: Ctx, cfg: ArchConfig, params: EncDec, frames):
     """frames: (B, S, d) precomputed conv-frontend embeddings, S <=
     n_frames.  Returns the encoder's output (B, S, d)."""
-    ecfg = _enc_cfg(cfg)
     s = frames.shape[1]
     x = frames.to(cfg.adt) + params.enc_pos[:s].to(cfg.adt)
     positions = torch.arange(s, device=frames.device)
+    block_apply = _remat(cfg, _enc_block_apply)
     for blk in params.enc_blocks:
-        h = norm_apply(cfg.norm, blk.attn_norm, x)
-        a, _ = L.attention(ctx, ecfg, blk.attn, h, positions, causal=False)
-        x = x + a
-        h = norm_apply(cfg.norm, blk.mlp_norm, x)
-        x = x + L.mlp(ctx, cfg, blk.mlp, h)
+        x = block_apply(ctx, cfg, blk, x, positions)
     return norm_apply(cfg.norm, params.enc_norm, x)
+
+
+def _enc_block_apply(ctx: Ctx, cfg: ArchConfig, blk: Block, x, positions):
+    h = norm_apply(cfg.norm, blk.attn_norm, x)
+    a, _ = L.attention(ctx, _enc_cfg(cfg), blk.attn, h, positions,
+                       causal=False)
+    x = x + a
+    h = norm_apply(cfg.norm, blk.mlp_norm, x)
+    return x + L.mlp(ctx, cfg, blk.mlp, h)
+
+
+def _dec_block_apply(ctx: Ctx, cfg: ArchConfig, blk: DecBlock, x, positions,
+                     sc, ck, cv, frame_pos):
+    ecfg = _enc_cfg(cfg)
+    h = norm_apply(cfg.norm, blk.attn_norm, x)
+    a, sc = L.attention(ctx, ecfg, blk.attn, h, positions, sc)
+    x = x + a
+    h = norm_apply(cfg.norm, blk.cross_norm, x)
+    a, _ = L.attention(ctx, ecfg, blk.cross, h, positions,
+                       kv_override=(ck, cv, frame_pos))
+    x = x + a
+    h = norm_apply(cfg.norm, blk.mlp_norm, x)
+    return x + L.mlp(ctx, cfg, blk.mlp, h), sc
 
 
 def encdec_decode(ctx: Ctx, cfg: ArchConfig, params: EncDec, tokens,
@@ -498,6 +570,7 @@ def encdec_decode(ctx: Ctx, cfg: ArchConfig, params: EncDec, tokens,
     x = x + table[positions.clamp(max=table.shape[0] - 1)].to(cfg.adt)
     frame_pos = torch.arange(cfg.n_frames, device=dev)
     new_pos = []
+    block_apply = _remat(cfg, _dec_block_apply)
     for i, blk in enumerate(params.dec_blocks):
         if cache is None:
             sc = None
@@ -505,15 +578,8 @@ def encdec_decode(ctx: Ctx, cfg: ArchConfig, params: EncDec, tokens,
         else:
             sc = _attention_layer(cache["self"], i)
             ck, cv = cache["cross_k"][i], cache["cross_v"][i]
-        h = norm_apply(cfg.norm, blk.attn_norm, x)
-        a, sc = L.attention(ctx, ecfg, blk.attn, h, positions, sc)
-        x = x + a
-        h = norm_apply(cfg.norm, blk.cross_norm, x)
-        a, _ = L.attention(ctx, ecfg, blk.cross, h, positions,
-                           kv_override=(ck, cv, frame_pos))
-        x = x + a
-        h = norm_apply(cfg.norm, blk.mlp_norm, x)
-        x = x + L.mlp(ctx, cfg, blk.mlp, h)
+        x, sc = block_apply(ctx, cfg, blk, x, positions, sc, ck, cv,
+                            frame_pos)
         if sc is not None:
             new_pos.append(sc["pos"])
     new_cache = None

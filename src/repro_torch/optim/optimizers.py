@@ -108,11 +108,17 @@ def global_norm(tree) -> torch.Tensor:
                           for leaf in tree_leaves(tree)))
 
 
+def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """``min(1, max_norm / max(norm, 1e-9))``, the factor of
+    :func:`clip_by_global_norm`."""
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
 def clip_by_global_norm(tree, max_norm: float):
-    """Scale every leaf by ``min(1, max_norm / max(norm, 1e-9))`` (in
-    fp32, cast back to the leaf's dtype).  Returns (tree, norm)."""
+    """Scale every leaf by :func:`clip_scale` (in fp32, cast back to the
+    leaf's dtype).  Returns (tree, norm)."""
     norm = global_norm(tree)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    scale = clip_scale(norm, max_norm)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), tree), norm
 
 

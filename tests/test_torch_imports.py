@@ -27,6 +27,8 @@ bad = sorted(m for m in sys.modules
 assert not bad, bad
 assert "repro_torch.models.ssm" in names
 assert "repro_torch.launch.whisper_serve" in names
+assert "repro_torch.runtime.train_loop" in names
+assert "repro_torch.launch.train" in names
 print(len(names))
 """
 
@@ -40,8 +42,10 @@ def test_every_module_imports_without_jax():
     # tasks, models.cnn, kernels.{autotune,ops,ref} and the two kernels;
     # then serving.{cluster,journal,traffic} and tasks.serve; then optim,
     # optim.optimizers and tasks.{train_utils,pruning,scaling,quantization};
-    # then models.ssm; then launch.whisper_serve
-    assert int(r.stdout.strip()) >= 73
+    # then models.ssm; then launch.whisper_serve; then the trainer:
+    # checkpoint{,.manager}, data.pipeline, launch.train,
+    # optim.compression and runtime{,.train_loop}
+    assert int(r.stdout.strip()) >= 80
 
 
 # the last two: atomic floating-point scatters, whose sums change order
@@ -60,7 +64,7 @@ def test_sources_name_no_jax_or_library_kernel(needle):
     assert not hits, hits
 
 
-def test_entry_points_raise_without_cuda(monkeypatch):
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from repro_torch.configs.registry import get_config
     from repro_torch.models.api import build_model
     from repro_torch.serving import PagedCacheConfig, init_paged_cache
@@ -76,6 +80,18 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.core.strategies import pruning_strategy
     with pytest.raises(RuntimeError, match="CUDA"):
         pruning_strategy("jet_dnn").execute(MetaModel())
+    import dataclasses
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.runtime.train_loop import train_loop
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_main(["--arch", "qwen2_7b", "--smoke", "--steps", "1"])
+    cuda_model = dataclasses.replace(build_model(cfg, device="cpu"),
+                                     device=torch.device("cuda"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_loop(cuda_model, steps=1, batcher=None,
+                   ckpt=CheckpointManager(str(tmp_path)))
+    assert os.listdir(tmp_path) == []      # nothing written
     model = build_model(cfg, device="cpu")
     assert model.device.type == "cpu"
     cache = init_paged_cache(cfg, pcfg, device="cpu")
