@@ -137,12 +137,12 @@ Phases, each printing one JSON line or more:
                requests served again alone bit-identical — then
                contiguous ``generate`` (batch 8, 512-token prompts, 64 new,
                every flash_decode launch on "tc") and a torch.profiler
-               breakdown of 16 of its decode steps; (b) DeepSeek-V2 at full
+               breakdown of 4 of its decode steps; (b) DeepSeek-V2 at full
                width (MLA, 160 routed experts top-6, 2 shared) cut to 2 of
                60 layers, bf16, ``generate`` (batch 4, 256-token prompts,
                32 new) under the bf16 policy (no kernel runs) and the
                int8-mlp policy (quant_matmul for each shared-expert
-               product, all on "tc"), and a profile of 16 decode steps
+               product, all on "tc"), and a profile of 4 decode steps
                under each; (c) the CPU against the card from
                one set of fp32 weights: granite on 2 layers through the
                paged engine and ``generate``, DeepSeek-V2 on 1 layer
@@ -157,7 +157,7 @@ Phases, each printing one JSON line or more:
                policy — flash_decode 9 launches a decode step, all on the
                fp32 CUDA-core variant at D = 80, quant_matmul 27 a
                forward under int8-mlp, all "tc" — with each request's
-               recurrent state beside its K/V bytes and a profile of 16
+               recurrent state beside its K/V bytes and a profile of 4
                decode steps; (b) xlstm-125m at full width and depth (6
                mLSTM/sLSTM pairs, fp32 weights) under the bf16 policy, no
                kernel launched, and its profile; (c) for each, a prefill
@@ -210,6 +210,27 @@ Phases, each printing one JSON line or more:
                layer, the CPU against the card.  Runs before phase 6,
                whose rows report its launch counts.
 
+16. dist     — distribution: (a) ``launch/train.py --mesh 1x1`` on a
+               real one-rank NCCL mesh (DTensors) against phase 15's
+               unsharded trainer (in memory) — starcoder2-3b at full width cut
+               to 2 layers, 3 steps of 8 x 128 under bf16 and int8-mlp,
+               the final checkpoints and the losses bit for bit, both
+               trainers' step ms, quant_matmul 2 x 2 x 3
+               launches under int8-mlp, all "tc" — then 8 greedy decode
+               steps of ``make_decode_step`` on the mesh (flash_decode
+               16 launches) with tokens equal to ``generate``'s; (b) the
+               dry run on the host of Qwen2-7B on the reference's 16 x 16
+               mesh (a placeholder world of 256, H100 constants):
+               ``dryrun_flow(..., "decode_32k", "H")``, three probes over
+               ``cache_seq_axis`` with their rooflines and the rules'
+               fallbacks (the reference's, string for string), the best
+               config, and Lower → Compile → Roofline at train_4k; (c)
+               rank 0 of (b)'s best decode_32k config executed on the card
+               (28 layers, 8 requests, every cache slot live, collectives
+               stubbed): the card's peak within 25 % of Compile's
+               prediction, and the step's ms.  Runs before phase 6, whose
+               rows report its launch counts.
+
 Then one ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line, and the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises and
 the script exits non-zero.  Without a CUDA device, or without the
@@ -223,12 +244,12 @@ kernels and host ops — and over 16 contiguous decode steps under each
 policy) runs only when asked.
 
 Usage: ``python3 chip_smoke.py [--phases
-1,2,3,4,5,6,8,9,10,11,12,13,14,15[,7]] [--src DIR]``; ``--phases 1,2,9,10``
+1,2,3,4,5,6,8,9,10,11,12,13,14,15,16[,7]] [--src DIR]``; ``--phases 1,2,9,10``
 builds the kernels and drives the SERVE and durability paths alone,
 ``--phases 1,2,3,11`` the design flow with training, ``--phases 1,2,12``
 the MoE family, ``--phases 1,2,3,13`` the SSM and hybrid families,
 ``--phases 1,2,3,14`` the encoder-decoder family, ``--phases 1,2,3,15``
-the trainer.
+the trainer, ``--phases 1,2,16`` distribution.
 ``--src`` drives the ``repro_torch`` under another tree (e.g. the parent
 commit unpacked beside this one) with this script's phases; with
 ``--phases 1,6`` that times both commits' kernels with the same rows in one
@@ -1654,7 +1675,8 @@ def phase_families() -> dict:
     (bit-identical tokens), then contiguous ``generate``; (b) DeepSeek-V2
     at full width on 2 layers through ``generate`` under the bf16 and the
     int8-mlp policy; (a) and (b) each end in a torch.profiler breakdown of
-    16 decode steps (outside the counted runs); (c) the CPU against the
+    :data:`PROFILE_STEPS` decode steps (outside the counted runs); (c) the
+    CPU against the
     card.  fp32 products stay
     fp32 (no TF32), as in the plain versions and the reference.  Returns
     the kernels' launches on these paths."""
@@ -1694,7 +1716,7 @@ def _families_granite() -> dict:
     launches.update(phase_generate(cfg, lm, policies=("bf16",),
                                    phase="families_generate"))
     _profile_generate(cfg, lm, policies=("bf16",),
-                      phase="families_profile_granite")
+                      phase="families_profile_granite", steps=PROFILE_STEPS)
     del lm
     torch.cuda.empty_cache()
     return launches
@@ -1719,7 +1741,7 @@ def _families_deepseek() -> dict:
                               phase="families_generate")
     launches.pop("flash_decode")
     _profile_generate(cfg, lm, DEEPSEEK_GENERATE,
-                      phase="families_profile_deepseek")
+                      phase="families_profile_deepseek", steps=PROFILE_STEPS)
     del lm
     torch.cuda.empty_cache()
     return launches
@@ -1835,8 +1857,8 @@ def phase_ssm_hybrid() -> dict:
     shared attention+MLP block after every 6; bf16 weights from seed 0)
     under the bf16 and the int8-mlp policy — flash_decode 9 a decode step,
     all on the fp32 CUDA-core variant at D = 80, quant_matmul 27 a
-    forward under int8-mlp, all "tc" — and a profile of 16 decode steps;
-    (b) xlstm-125m at full width and depth (6 mLSTM/sLSTM pairs, fp32
+    forward under int8-mlp, all "tc" — and a profile of
+    :data:`PROFILE_STEPS` decode steps; (b) xlstm-125m at full width and depth (6 mLSTM/sLSTM pairs, fp32
     weights) under the bf16 policy, no kernel launched, and its profile;
     (c) for each, a prefill of 511 tokens and one decode step against the
     512-token prefill's last logits (:func:`_handoff`); (d) the CPU
@@ -1864,7 +1886,8 @@ def phase_ssm_hybrid() -> dict:
         if arch == "zamba2_2p7b":
             launches.update(got)
         _profile_generate(cfg, lm, policies=("bf16",),
-                          phase=f"ssm_hybrid_profile_{arch}")
+                          phase=f"ssm_hybrid_profile_{arch}",
+                          steps=PROFILE_STEPS)
         _handoff(cfg, lm)
         del lm
         torch.cuda.empty_cache()
@@ -1964,9 +1987,11 @@ WHISPER_CPU = dict(enc_layers=2, layers=2,
                    candidates={"bf16": 16, "int8-mlp": 8}, prompt_len=4,
                    gen=4)
 WHISPER_POLICIES = ("bf16", "int8-mlp")
-# decode steps a profile: reading a profile back costs ~1.5 s a step
-# (~1,400-1,800 kernels and their host ops), the steps themselves 25-50 ms
-WHISPER_PROFILE_STEPS = 4
+# decode steps of the profiles of phases 12-14: reading a profile back
+# costs about 1 ms of host time a kernel launched (whisper-small ~1,400-
+# 1,800 kernels a step, granite-moe ~6,500, zamba2-2.7b ~4,100), the
+# steps themselves 25-110 ms
+PROFILE_STEPS = 4
 
 
 def phase_encdec() -> dict:
@@ -2007,7 +2032,7 @@ def phase_encdec() -> dict:
                               "encdec_generate", frames)
     secs["generate"] = time.perf_counter() - t0
     _profile_generate(cfg, lm, WHISPER, WHISPER_POLICIES, "encdec_profile",
-                      frames, steps=WHISPER_PROFILE_STEPS)
+                      frames, steps=PROFILE_STEPS)
     secs["profile"] = time.perf_counter() - t0 - sum(secs.values())
     _handoff(cfg, lm, WHISPER["prompt_len"], frames,
              phase="encdec_handoff")
@@ -3557,6 +3582,292 @@ def phase_train() -> dict:
     return launches
 
 
+# ------------------------------------------------------------- phase 16
+DIST_STEPS = 3                 # (a): steps a run (checkpoints at -1, 2)
+DIST_DECODE = dict(batch=8, prompt_len=64, steps=8)
+# (a): 2 layers of the 1 x 1 sharded trainer must equal phase 15's
+# unsharded one bit for bit: on one rank every local op is the unsharded
+# op on the same tensors
+DIST_ARCH = "qwen2-7b"
+# (b): the rules' fallbacks of each decode_32k probe on 16 x 16, the
+# reference's string for string (tests/test_torch_sharding.py::
+# test_fallbacks_qwen2_on_16x16 holds them to the JAX package on the CPU)
+DIST_FALLBACKS = {None: [], "model": [],
+                  "data": ["kv_heads:dim4%16!=0->replicated"]}
+DIST_PEAK_TOL = 0.25           # (c): measured peak against Compile's
+
+
+def _one_rank_world():
+    """A real one-rank NCCL default group (``launch/train.py``'s
+    environment: RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT)."""
+    import os
+    import socket
+    import torch.distributed as dist
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    dist.init_process_group("nccl")
+
+
+def _plain_train(int8: bool) -> tuple[list, dict]:
+    """Phase 15's unsharded trainer as ``launch/train.main`` runs it
+    (``train_loop``'s seed 0, ``TokenSource`` batches, AdamW on the
+    cosine schedule), :data:`DIST_STEPS` steps in memory — no
+    checkpoint is written — on the cut config: (losses, the host
+    snapshot a checkpoint of the final state would write, each step's
+    ms as ``train_loop`` times it: the step and its loss read back)."""
+    from repro_torch.checkpoint.manager import _flatten, _host
+    from repro_torch.configs.registry import get_config
+    from repro_torch.convert import state_to_jax
+    from repro_torch.data.pipeline import ShardedBatcher, TokenSource
+    from repro_torch.launch.serve import serve_policy
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.optimizers import adamw, cosine_schedule
+    from repro_torch.runtime.train_loop import (init_train_state,
+                                                make_train_step)
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg, serve_policy(True) if int8 else None,
+                        device="cuda")
+    opt = adamw(cosine_schedule(3e-4, 10, DIST_STEPS))
+    state = init_train_state(model, opt, 0)
+    step = make_train_step(model, opt)
+    batcher = ShardedBatcher(TokenSource(cfg.vocab_size, 8, 128), None,
+                             device="cuda")
+    losses, step_ms = [], []
+    for i in range(DIST_STEPS):
+        batch = batcher.get(i)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, {k: _host(v)[0] for k, v in _flatten(
+        state_to_jax(state)).items()}, step_ms
+
+
+def _dist_train(root: Path) -> tuple[dict, dict]:
+    """(a) ``launch/train.main --mesh 1x1`` on starcoder2-3b cut to 2
+    layers, 3 steps under bf16 and int8-mlp (DTensors on the one-rank
+    NCCL mesh), its final checkpoint's host snapshot against phase 15's
+    unsharded trainer from the same seed (:func:`_plain_train`), bit
+    for bit, and both trainers' step times (the first step is a
+    warm-up).  Returns the report and the sharded runs' launches."""
+    from repro_torch.configs import starcoder2_3b
+    out, launches = {}, {}
+    args = TRAIN_ARGS + ["--steps", str(DIST_STEPS)]
+    with _cut_config(starcoder2_3b, n_layers=TRAIN_CUT_LAYERS):
+        for pol in ("bf16", "int8-mlp"):
+            int8 = pol == "int8-mlp"
+            t0 = time.perf_counter()
+            plain_losses, plain_kept, plain_ms = _plain_train(int8)
+            plain_s = time.perf_counter() - t0
+            _zero_counts()
+            mesh, mesh_kept = _launch_train(
+                args + (["--int8"] if int8 else []) + [
+                    "--mesh", "1x1", "--ckpt-dir", str(root / pol)],
+                keep_step=DIST_STEPS - 1)
+            counts, tc = _read_counts(), _read_tc_counts()
+            eq = _snapshots_equal(plain_kept, mesh_kept)
+            losses = {"first_loss": (plain_losses[0], mesh["first_loss"]),
+                      "final_loss": (plain_losses[-1], mesh["final_loss"])}
+            if not eq["bit_equal"] or any(a != b for a, b in
+                                          losses.values()):
+                raise AssertionError(f"phase 16 (a) {pol}: the 1 x 1 mesh "
+                                     f"differs from the unsharded trainer: "
+                                     f"{eq}, losses {losses}")
+            if mesh["mesh"] != [1, 1] or mesh["steps_run"] != DIST_STEPS:
+                raise AssertionError(f"phase 16 (a): {mesh}")
+            qmm = counts["quant_matmul"]
+            others = {k: v for k, v in counts.items()
+                      if v and k != "quant_matmul"}
+            want = 2 * TRAIN_CUT_LAYERS * DIST_STEPS if int8 else 0
+            if qmm != want or tc.get("quant_matmul", 0) != qmm or others:
+                raise AssertionError(f"phase 16 (a) {pol}: launches "
+                                     f"{counts}, tc {tc}, want {want}")
+            if int8:
+                launches["quant_matmul"] = qmm
+            out[pol] = {"bit_equal": True, "losses": losses,
+                        "quant_matmul": qmm, "quant_matmul_tc":
+                        tc.get("quant_matmul", 0),
+                        "mesh_step_ms": mesh["step_ms"],
+                        "plain_step_ms": plain_ms,
+                        "plain_s": plain_s, "mesh_wall_s": mesh["wall_s"]}
+    return out, launches
+
+
+def _dist_decode() -> tuple[dict, dict]:
+    """(a) ``make_decode_step`` on the one-rank mesh: starcoder2-3b cut
+    to 2 layers, bf16 weights from seed 0, a prefill and 8 greedy steps,
+    against the unsharded ``generate`` from the same weights; the decode
+    steps' flash_decode launches counted."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.api import build_model
+    from repro_torch.parallel.sharding import (ShardingRules,
+                                               batch_placements, distribute)
+    from repro_torch.runtime import train_loop as TL
+    c = DIST_DECODE
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=TRAIN_CUT_LAYERS,
+                                         param_dtype="bfloat16")
+    gen = torch.Generator().manual_seed(5)
+    prompts = torch.randint(0, cfg.vocab_size, (c["batch"], c["prompt_len"]),
+                            generator=gen)
+    cache_len = c["prompt_len"] + c["steps"] + 1
+    plain = build_model(cfg, device="cuda")
+    ref = generate(plain, plain.init(0), prompts, c["steps"] + 1, cache_len,
+                   scan=False).cpu()
+    mesh = make_host_mesh(1, 1, "cuda")
+    rules = ShardingRules.default(mesh)
+    model = build_model(cfg, device="cuda", mesh=mesh)
+    params = TL.shard_params(model.init(0), TL.state_shardings(
+        model, rules, "sgd")["params"])
+    cache = TL.place_cache(model.init_cache(c["batch"], cache_len),
+                           TL.cache_shardings(model, rules, c["batch"],
+                                              cache_len))
+    bp = batch_placements(mesh)
+    logits, cache = TL.make_prefill_step(model, cache_len)(
+        params, {"tokens": distribute(prompts.cuda(), mesh, bp)}, cache)
+    step = TL.make_decode_step(model)
+    tok = logits.full_tensor()[:, -1].argmax(-1, keepdim=True).int()
+    toks = [tok]
+    _zero_counts()
+    t0 = time.perf_counter()
+    for _ in range(c["steps"]):
+        logits, cache = step(params, cache, distribute(tok, mesh, bp))
+        tok = logits.full_tensor()[:, -1].argmax(-1, keepdim=True).int()
+        toks.append(tok)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, tc = _read_counts(), _read_tc_counts()
+    got = torch.cat(toks, 1).cpu()
+    fd = counts["flash_decode"]
+    if not torch.equal(got, ref.to(got.dtype)):
+        raise AssertionError(f"phase 16 (a): mesh decode tokens differ from "
+                             f"generate's in {int((got != ref).sum())}")
+    if fd != c["steps"] * cfg.n_layers or any(
+            v for k, v in counts.items() if k != "flash_decode"):
+        raise AssertionError(f"phase 16 (a): decode launches {counts}")
+    return ({"tokens_equal": True, "flash_decode": fd,
+             "flash_decode_tc": tc.get("flash_decode", 0),
+             "step_ms": wall / c["steps"] * 1e3, **c},
+            {"flash_decode": fd})
+
+
+def _dist_dryrun() -> dict:
+    """(b) the dry run on the host, placeholder world of 256 ranks:
+    ``dryrun_flow(qwen2-7b, decode_32k, "H")`` — three probes over
+    ``cache_seq_axis`` — then Lower → Compile → Roofline at train_4k."""
+    from repro_torch.core.strategies import dryrun_flow, run
+    from repro_torch.launch.roofline import format_roofline
+    t0 = time.perf_counter()
+    meta = run(dryrun_flow(DIST_ARCH, "decode_32k", o_tasks="H",
+                           task_params={"H": {"shape": "decode_32k"}}))
+    res = meta.get("sharding_search.result")
+    probes = []
+    for t in res["trace"]:
+        axis, r = t["config"]["cache_seq_axis"], t["roofline"]
+        print(format_roofline(f"{DIST_ARCH} decode_32k cache_seq_axis="
+                              f"{axis}", r), flush=True)
+        if r["fallbacks"] != DIST_FALLBACKS[axis]:
+            raise AssertionError(f"phase 16 (b): fallbacks {r['fallbacks']} "
+                                 f"at cache_seq_axis={axis}")
+        probes.append({"cache_seq_axis": axis, "bound_ms": r["bound_s"] * 1e3,
+                       "dominant": r["dominant"], "fits": r["fits_hbm"],
+                       "peak_gb": r["memory"]["peak_bytes"] / 1e9,
+                       "fallbacks": r["fallbacks"],
+                       "collective_counts": r["collective_counts"]})
+    if not res["roofline"]["fits_hbm"]:
+        raise AssertionError("phase 16 (b): no probe fits 80 GB")
+    decode_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    tmeta = run(dryrun_flow(DIST_ARCH, "train_4k"))
+    tr = tmeta.get("roofline.last")
+    return {"probes": probes, "best": res["best"],
+            "best_bound_ms": res["roofline"]["bound_s"] * 1e3,
+            "decode_flow_s": decode_s,
+            "train": {"bound_ms": tr["bound_s"] * 1e3,
+                      "dominant": tr["dominant"],
+                      "compute_ms": tr["compute_s"] * 1e3,
+                      "memory_ms": tr["memory_s"] * 1e3,
+                      "collective_ms": tr["collective_s"] * 1e3,
+                      "peak_gb": tr["memory"]["peak_bytes"] / 1e9,
+                      "fits": tr["fits_hbm"],
+                      "collective_counts": tr["collective_counts"],
+                      "flow_s": time.perf_counter() - t1}}
+
+
+def _dist_execute(best: dict) -> dict:
+    """(c) rank 0's program of (b)'s best decode_32k config on the card
+    (28 layers, 8 requests, every cache slot live; the placeholder
+    group's collectives stubbed): the card's peak against Compile's
+    prediction, and the step's time."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.dryrun import execute_cell, lower_cell
+    kw = {k: v for k, v in best.items() if v is not None}
+    shape = SHAPES["decode_32k"]
+    lowered, _, _, _ = lower_cell(DIST_ARCH, shape, **kw)
+    mem = lowered.compile().memory_analysis()
+    predicted = mem.argument_size_in_bytes + mem.temp_size_in_bytes
+    got = execute_cell(DIST_ARCH, shape, device="cuda", **kw)
+    ratio = got["peak_bytes"] / predicted
+    if abs(ratio - 1.0) > DIST_PEAK_TOL:
+        raise AssertionError(f"phase 16 (c): peak {got['peak_bytes']} "
+                             f"against {predicted} predicted")
+    return {"config": kw, "predicted_peak_bytes": predicted,
+            "predicted_arg_bytes": mem.argument_size_in_bytes,
+            "measured_peak_bytes": got["peak_bytes"],
+            "measured_arg_bytes": got["arg_bytes"], "ratio": ratio,
+            "step_ms": got["ms"], "step_ms_all": got["ms_all"],
+            "collectives": got["collectives"]}
+
+
+def phase_dist() -> dict:
+    """Phase 16, distribution: (a) the sharded trainer and decode on a
+    real one-rank NCCL mesh against the unsharded ones; (b) the dry run
+    of the reference's 16 x 16 production mesh on a placeholder group;
+    (c) one rank of (b)'s best decode config executed on the card.  The
+    counts are set to 0 just before each sharded run and read after it;
+    returns the launches of (a)."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_dist_"))
+    _one_rank_world()
+    try:
+        train, launches = _dist_train(root)
+        shutil.rmtree(root, ignore_errors=True)
+        decode, dl = _dist_decode()
+        launches.update(dl)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    emit({"phase": "dist", "part": "a", "arch": TRAIN_ARCH,
+          "layers": TRAIN_CUT_LAYERS, "train": train, "decode": decode,
+          "wall_s": time.perf_counter() - t0})
+    t1 = time.perf_counter()
+    try:
+        dry = _dist_dryrun()
+        emit({"phase": "dist", "part": "b", "arch": DIST_ARCH,
+              "mesh": "16x16", **dry, "wall_s": time.perf_counter() - t1})
+        t1 = time.perf_counter()
+        ex = _dist_execute(dry["best"])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    emit({"phase": "dist", "part": "c", "arch": DIST_ARCH, **ex,
+          "wall_s": time.perf_counter() - t1})
+    emit({"phase": "dist_done", "launches": launches,
+          "wall_s": time.perf_counter() - t0})
+    return launches
+
+
 PREFILL_RANGE = "burst_prefill"
 # the enc-dec decode profile's ranges over a decoder layer's parts
 PART_RANGES = ("layer_self_attention", "layer_cross_attention",
@@ -3606,11 +3917,13 @@ def phase_profile() -> None:
     _profile_generate(cfg, lm)
 
 
-def _profile_summary(prof, wall: float, table: str) -> dict:
+def _profile_summary(prof, wall: float, table: str, events=None) -> dict:
     """Device busy time and idle share over ``wall``, the top kernels
-    and host ops; the full table goes to ``chiprun_out/<table>``."""
+    and host ops (from ``events``, ``prof.key_averages()`` when not
+    given); the full table goes to ``chiprun_out/<table>``."""
     import torch
-    events = prof.key_averages()
+    if events is None:
+        events = prof.key_averages()
     # device-side events only: a host op's device time repeats its
     # kernels' time (and a user range's device span is no kernel)
     dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
@@ -3703,11 +4016,13 @@ def _profile_generate(cfg, lm, c=GENERATE, policies=("bf16", "int8-mlp"),
             fns.decode_scan(lm, cache, tok, steps)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        summary = _profile_summary(prof, wall, f"{phase}_{pname}.txt")
+        events = prof.key_averages()
+        summary = _profile_summary(prof, wall, f"{phase}_{pname}.txt",
+                                   events)
         step_ms = 1e3 * wall / steps
         busy_ms = max(1e3 * summary["device_busy_s"] / steps, 1e-9)
         parts = {}
-        for e in prof.key_averages():
+        for e in events:
             if e.key in PART_RANGES and \
                     e.device_type == torch.autograd.DeviceType.CPU:
                 host_ms = e.cpu_time_total / 1e3 / steps
@@ -3717,7 +4032,7 @@ def _profile_generate(cfg, lm, c=GENERATE, policies=("bf16", "int8-mlp"),
                                 "host_share_of_step": host_ms / step_ms,
                                 "device_ms": dev_ms,
                                 "device_share_of_busy": dev_ms / busy_ms}
-        flash_ms = sum(e.self_device_time_total for e in prof.key_averages()
+        flash_ms = sum(e.self_device_time_total for e in events
                        if e.device_type == torch.autograd.DeviceType.CUDA
                        and "decode" in e.key) / 1e3 / steps
         if parts:
@@ -3727,7 +4042,7 @@ def _profile_generate(cfg, lm, c=GENERATE, policies=("bf16", "int8-mlp"),
               "wall_s": wall, "decode_step_ms": step_ms,
               "device_events_per_step": summary["device_events"] / steps,
               "flash_decode_device_ms": flash_ms,
-              **summary})
+              "readback_s": time.perf_counter() - t0 - wall, **summary})
         del fns, model, cache, logits
         torch.cuda.empty_cache()
 
@@ -4203,7 +4518,7 @@ def _row(name, source, replaces, launches, err, tol, kernel, plain, lib,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,8,9,10,11,12,13,14,15",
+                    default="1,2,3,4,5,6,8,9,10,11,12,13,14,15,16",
                     help="comma-separated phases to run (default: all "
                          "but 7)")
     ap.add_argument("--src", default=str(ROOT / "src"),
@@ -4256,6 +4571,7 @@ def main(argv=None) -> int:
     hybrid_launches = run(13, phase_ssm_hybrid, default={})
     encdec_launches = run(14, phase_encdec, default={})
     train_launches = run(15, phase_train, default={})
+    dist_launches = run(16, phase_dist, default={})
     flow_launches, durable_launches = {}, {}
     if 9 in phases or 10 in phases:
         model = params = None
@@ -4281,6 +4597,7 @@ def main(argv=None) -> int:
         row["ssm_hybrid_launches"] = hybrid_launches.get(row["name"], 0)
         row["encdec_launches"] = encdec_launches.get(row["name"], 0)
         row["train_launches"] = train_launches.get(row["name"], 0)
+        row["dist_launches"] = dist_launches.get(row["name"], 0)
     run(7, phase_profile)
     emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 3),
           "phase_s": phase_s})

@@ -27,8 +27,14 @@ leaf is written as its raw 16 bits (int16) with ``"dtype": "bfloat16"``
 in the manifest, and restored by the manifest's dtype; that also reads
 the JAX package's bf16 leaves, which ``np.savez`` stores as raw ``|V2``
 bytes (the reference's own ``restore`` cannot: ``jnp.asarray`` refuses
-``|V2``).  Restoring onto another mesh (``shardings``) waits for the
-distribution slice.
+``|V2``).
+
+Elastic: a DTensor leaf is gathered whole (every rank takes part) and
+rank 0 alone writes, so the files keep the JAX layout whatever the mesh.
+``restore(shardings=...)`` places each leaf onto a mesh of any shape:
+each rank reads only its shard's bytes of the stored array (the ``.npy``
+members of ``arrays.npz`` are stored uncompressed, so they are mapped,
+not read whole) and the restore is bit-exact.
 """
 
 from __future__ import annotations
@@ -36,14 +42,18 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import struct
 import threading
 import time
+import zipfile
 from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.convert import Stacked
+from repro_torch.parallel.sharding import is_dtensor, local_slice
 
 BF16 = "bfloat16"
 
@@ -73,9 +83,58 @@ def _unflatten(flat: dict[str, Any]):
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
-    """A tensor as numpy can hold it: bf16 as its int16 bit patterns."""
+    """A tensor as numpy can hold it: bf16 as its int16 bit patterns; a
+    DTensor gathered whole first (a collective: every rank calls it)."""
     t = t.detach()
+    if is_dtensor(t):
+        t = t.full_tensor()
     return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def _rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _member(path: str, name: str) -> np.ndarray:
+    """The array ``name`` of the ``.npz`` at ``path``, memory-mapped (a
+    stored ``.npy`` member is mapped in place: slicing it reads only the
+    slice's bytes); a compressed member is read whole."""
+    with zipfile.ZipFile(path) as zf:
+        info = zf.getinfo(name + ".npy")
+        if info.compress_type != zipfile.ZIP_STORED:
+            with zf.open(info) as f:
+                return np.lib.format.read_array(f)
+    with open(path, "rb") as f:
+        f.seek(info.header_offset)
+        head = f.read(30)             # the zip local file header
+        n_name, n_extra = struct.unpack("<HH", head[26:30])
+        f.seek(info.header_offset + 30 + n_name + n_extra)
+        version = np.lib.format.read_magic(f)
+        read = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                else np.lib.format.read_array_header_2_0)
+        shape, fortran, dtype = read(f)
+        offset = f.tell()
+    if not shape:
+        return np.fromfile(path, dtype=dtype, count=1, offset=offset
+                           ).reshape(())
+    return np.memmap(path, dtype=dtype, mode="r", offset=offset,
+                     shape=shape, order="F" if fortran else "C")
+
+
+def _placed(arr: np.ndarray, dtype: str, sharding):
+    """This rank's shard of the stored ``arr`` as a DTensor placed by
+    ``sharding`` (a ``parallel.sharding.NamedSharding``): for a stacked
+    one, a :class:`Stacked` of each block's.  Only the shard is read."""
+    from torch.distributed.tensor import DTensor
+    mesh, pls = sharding.mesh, sharding.placements
+
+    def one(a):
+        local = _tensor(np.array(local_slice(a, mesh, pls)), dtype)
+        return DTensor.from_local(local.to(mesh.device_type), mesh, pls,
+                                  run_check=False)
+    if sharding.stacked:
+        return Stacked(one(arr[i]) for i in range(arr.shape[0]))
+    return one(arr)
 
 
 def _host(leaf) -> tuple[np.ndarray, str]:
@@ -84,7 +143,8 @@ def _host(leaf) -> tuple[np.ndarray, str]:
     if isinstance(leaf, Stacked):
         first = leaf[0]
         out = torch.empty((len(leaf), *first.shape),
-                          dtype=_bits(first).dtype)
+                          dtype=torch.int16 if first.dtype == torch.bfloat16
+                          else first.dtype)
         for row, t in zip(out, leaf):
             row.copy_(_bits(t))     # device to host, into the stack
         return out.numpy(), str(first.dtype).removeprefix("torch.")
@@ -118,10 +178,21 @@ class CheckpointManager:
 
     # -------------------------------------------------------------- save
     def save(self, step: int, state: Any, extra: dict | None = None):
-        """Snapshot to host memory now; write to disk (a)synchronously."""
+        """Snapshot to host memory now; write to disk (a)synchronously.
+        Under a process group rank 0 snapshots and writes; the other
+        ranks only take part in each DTensor leaf's gather, in the same
+        order, wait for it and drop what it gives them at once."""
         self.wait()
+        flat = _flatten(state)
+        if _rank() != 0:
+            from torch.distributed._functional_collectives import wait_tensor
+            for v in flat.values():
+                for t in (v if isinstance(v, Stacked) else [v]):
+                    if is_dtensor(t):
+                        wait_tensor(_bits(t))
+            return
         host, leaves = {}, {}
-        for k, v in _flatten(state).items():
+        for k, v in flat.items():
             host[k], dtype = _host(v)
             leaves[k] = {"shape": list(host[k].shape), "dtype": dtype}
         meta = {"step": step, "extra": extra or {}, "leaves": leaves,
@@ -190,13 +261,15 @@ class CheckpointManager:
     def restore(self, step: int | None = None, shardings=None):
         """Load a checkpoint (the newest committed one by default):
         (nested dicts of CPU tensors, manifest), or (None, None) when
-        nothing is committed.  ``shardings`` (elastic restore onto a
-        mesh) is not ported yet."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "CheckpointManager.restore(shardings=...) waits for the "
-                "distribution slice (parallel/sharding.py)")
+        nothing is committed.  ``shardings`` (a tree of
+        ``NamedSharding`` leaves matching the state, or a flat {path:
+        sharding} dict) places those leaves as DTensors on their mesh,
+        each rank reading only its shard — the elastic restore onto
+        another mesh shape.  Under a process group every rank waits for
+        rank 0's last write first."""
         self.wait()
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            dist.barrier()
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -204,8 +277,16 @@ class CheckpointManager:
         name = f"step_{step:08d}"
         with open(os.path.join(self.dir, name, "manifest.json")) as f:
             meta = json.load(f)
+        flat_shard = {}
+        if shardings is not None:   # a flat dict's keys are leaf paths
+            flat_shard = shardings if any("/" in k for k in shardings) \
+                else _flatten(shardings)
+        path = os.path.join(self.dir, name, "arrays.npz")
         flat = {}
-        with np.load(os.path.join(self.dir, name, "arrays.npz")) as npz:
-            for k in npz.files:
-                flat[k] = _tensor(npz[k], meta["leaves"][k]["dtype"])
+        for k, info in meta["leaves"].items():
+            arr = _member(path, k)
+            if k in flat_shard and arr.ndim:
+                flat[k] = _placed(arr, info["dtype"], flat_shard[k])
+            else:
+                flat[k] = _tensor(np.array(arr), info["dtype"])
         return _unflatten(flat), meta

@@ -143,6 +143,11 @@ def _pairs(template, tree, path: str):
         for k in sorted(template):
             yield from _pairs(template[k], tree[k], f"{path}/{k}")
         return
+    if isinstance(template, list) and isinstance(tree, list):
+        # restored onto a mesh: one DTensor a block (``Stacked``)
+        for i, (t, leaf) in enumerate(zip(template, tree, strict=True)):
+            yield from _pairs(t, leaf, f"{path}/{i}")
+        return
     want = template
     if isinstance(template, list):
         want = torch.empty((len(template), *template[0].shape),
@@ -158,13 +163,19 @@ def _pairs(template, tree, path: str):
 
 
 @torch.no_grad()
-def state_from_jax(tree: dict, model) -> dict:
+def state_from_jax(tree: dict, model, shardings: dict | None = None) -> dict:
     """A train state from a tree in the JAX package's layout (nested
     dicts of CPU tensors, as ``CheckpointManager.restore`` returns them):
     the parameters loaded into ``model.empty_params()``, the optimizer
     state and residuals in the per-block structure on the model's
-    device.  Every leaf's shape and dtype must be the model's."""
+    device.  Every leaf's shape and dtype must be the model's.  With
+    ``shardings`` (``runtime/train_loop.py::state_shardings``) the
+    parameters are DTensors placed by them, and ``tree`` holds DTensors
+    in the same placements (``restore(shardings=...)``)."""
     params = model.empty_params()
+    if shardings is not None:
+        from repro_torch.runtime.train_loop import shard_params
+        shard_params(params, shardings["params"])
     template = params.param_tree(per_block=True)
     for p, stored in _pairs(template, tree["params"], "params"):
         p.copy_(stored)

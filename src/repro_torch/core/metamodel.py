@@ -28,8 +28,8 @@ from typing import Any, Callable, Iterator
 # and keeps the other two names so that artifacts are labelled as in the
 # JAX package.
 LEVEL_DNN = "dnn"            # a model (parameters + apply fn)
-LEVEL_LOWERED = "lowered"    # a lowered artifact (not produced by the port yet)
-LEVEL_COMPILED = "compiled"  # a compiled artifact (not produced by the port yet)
+LEVEL_LOWERED = "lowered"    # a lowered artifact (tasks/lower.py)
+LEVEL_COMPILED = "compiled"  # a compiled artifact (tasks/lower.py)
 
 
 @dataclasses.dataclass

@@ -9,11 +9,12 @@ that these are a few lines to assemble and re-order.
     meta = run(flow)
 
 The JAX package's ``core/strategies.py``: :data:`O_TASKS` holds PRUNING
-(``"P"``), SCALING (``"S"``), QUANTIZATION (``"Q"``), TUNE (``"T"``) and
-SERVE (``"V"``).  SHARDING-SEARCH (``"H"``) and the dry-run flow
-(``dryrun_flow``: Lower → Compile → Roofline) wait for ROADMAP Queue 1,
-item 5, and raise.  Flows run on the card unless MODEL-GEN is given
-``device="cpu"``; the O-tasks run where MODEL-GEN's model lives.
+(``"P"``), SCALING (``"S"``), QUANTIZATION (``"Q"``), SHARDING-SEARCH
+(``"H"``), TUNE (``"T"``) and SERVE (``"V"``), and :func:`dryrun_flow`
+expresses the dry run as ModelGen → [O-tasks] → Lower → Compile →
+Roofline.  Flows run on the card unless MODEL-GEN is given
+``device="cpu"``; the O-tasks run where MODEL-GEN's model lives.  The
+dry-run flow's MODEL-GEN builds on the ``meta`` device (shapes only).
 """
 
 from __future__ import annotations
@@ -22,19 +23,17 @@ from typing import Any
 
 from repro_torch.core.flow import DesignFlow
 from repro_torch.core.metamodel import MetaModel
+from repro_torch.tasks.lower import Compile, Lower, Roofline
 from repro_torch.tasks.model_gen import ModelGen
 from repro_torch.tasks.pruning import Pruning
 from repro_torch.tasks.quantization import Quantization
 from repro_torch.tasks.scaling import Scaling
 from repro_torch.tasks.serve import Serve
+from repro_torch.tasks.sharding_search import ShardingSearch
 from repro_torch.tasks.tune import Tune
 
-O_TASKS = {"P": Pruning, "S": Scaling, "Q": Quantization, "T": Tune,
-           "V": Serve}
-
-# O-tasks and flows of the JAX package that wait for a later slice
-UNPORTED = ("SHARDING-SEARCH (\"H\") and the dry-run flow wait for ROADMAP "
-            "Queue 1, item 5 (tasks/sharding_search.py, tasks/lower.py)")
+O_TASKS = {"P": Pruning, "S": Scaling, "Q": Quantization,
+           "H": ShardingSearch, "T": Tune, "V": Serve}
 
 
 def pruning_strategy(model: str = "jet_dnn", *, device=None,
@@ -100,9 +99,6 @@ def combined_strategy(model: str = "jet_dnn", order: str = "SPQ",
     pruning → scaling (Fig. 5(b)).  Reordering is a one-char edit — the
     customizability claim of the paper."""
     task_params = task_params or {}
-    unknown = sorted(set(order) - set(O_TASKS))
-    if unknown:
-        raise NotImplementedError(f"O-tasks {unknown}: {UNPORTED}")
     flow = DesignFlow(f"{'+'.join(order)}({model})")
     tasks: list[Any] = [ModelGen(model=model, **(model_params or {}))]
     for ch in order:
@@ -111,10 +107,20 @@ def combined_strategy(model: str = "jet_dnn", order: str = "SPQ",
     return flow
 
 
-def dryrun_flow(arch: str, *args, **kwargs) -> DesignFlow:
-    """ModelGen → [O-tasks] → Lower → Compile → Roofline in the JAX
-    package; not ported."""
-    raise NotImplementedError(f"dryrun_flow({arch!r}): {UNPORTED}")
+def dryrun_flow(arch: str, shape: str = "train_4k",
+                multi_pod: bool = False, o_tasks: str = "",
+                task_params: dict[str, dict] | None = None) -> DesignFlow:
+    """Deliverables (e)/(g) as a MetaML flow:
+    ModelGen → [O-tasks] → Lower → Compile → Roofline."""
+    task_params = task_params or {}
+    flow = DesignFlow(f"dryrun({arch}@{shape})")
+    tasks: list[Any] = [ModelGen(model=arch, train_en=False, device="meta")]
+    for ch in o_tasks:
+        tasks.append(O_TASKS[ch](**task_params.get(ch, {})))
+    tasks += [Lower(shape=shape, multi_pod=multi_pod), Compile(),
+              Roofline()]
+    flow.chain(*tasks)
+    return flow
 
 
 def run(flow: DesignFlow, cfg: dict | None = None) -> MetaModel:

@@ -8,8 +8,10 @@
   fault-tolerant training is the step counter), and both packages draw
   the same integers for every step.
 - :class:`ShardedBatcher` places host batches on the model's device,
-  prefetching one batch ahead on a thread.  Placement over a mesh
-  (``rules``) waits for the port of ``parallel/sharding.py``.
+  prefetching one batch ahead on a thread; with ``rules`` each rank
+  places its rows of the global batch as a DTensor sharded on batch over
+  the mesh's data-parallel axes (the global batch is the one
+  ``rules=None`` gives: every rank draws it from the same step).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 
 from repro_torch.data.synthetic import lm_tokens
 from repro_torch.models.common import resolve_device
+from repro_torch.parallel.sharding import local_slice
 
 
 class TokenSource:
@@ -55,16 +58,14 @@ class ShardedBatcher:
     """Places host batches on ``device`` — the model's; CUDA unless the
     caller names another — as int64 tensors holding the integers of
     :meth:`TokenSource.batch_at`, one batch ahead on a thread with
-    ``prefetch``.  ``rules`` is the JAX package's sharding rules: only
-    ``None`` (one device) is ported."""
+    ``prefetch``.  With ``rules`` (``parallel/sharding.py``) a batch is a
+    DTensor on ``rules.mesh``, its rows sharded by the ``batch`` rule
+    (replicated where they do not divide); this rank copies only its
+    rows to the device."""
 
     def __init__(self, source: TokenSource, rules=None,
                  prefetch: bool = True,
                  device: str | torch.device | None = None):
-        if rules is not None:
-            raise NotImplementedError(
-                "ShardedBatcher: placement over a mesh (rules) waits for the "
-                "distribution slice (parallel/sharding.py); pass rules=None")
         self.source = source
         self.rules = rules
         self.prefetch = prefetch
@@ -73,8 +74,18 @@ class ShardedBatcher:
         self._thread: threading.Thread | None = None
 
     def _place(self, batch: dict[str, np.ndarray]) -> dict:
-        return {k: torch.from_numpy(v).long().to(self.device)
-                for k, v in batch.items()}
+        if self.rules is None:
+            return {k: torch.from_numpy(v).long().to(self.device)
+                    for k, v in batch.items()}
+        from torch.distributed.tensor import DTensor
+        out = {}
+        for k, v in batch.items():
+            sh = self.rules.sharding_for(("batch",) + (None,) * (v.ndim - 1),
+                                         v.shape)
+            rows = local_slice(torch.from_numpy(v), sh.mesh, sh.placements)
+            out[k] = DTensor.from_local(rows.long().to(self.device), sh.mesh,
+                                        sh.placements, run_check=False)
+        return out
 
     def get(self, step: int) -> dict:
         if self._thread is not None:

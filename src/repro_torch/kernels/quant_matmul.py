@@ -38,6 +38,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.distributed.tensor.experimental import register_sharding
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import gemm_tc
@@ -134,6 +135,28 @@ def int8_matmul(xq: torch.Tensor, xs: torch.Tensor, wq: torch.Tensor,
     if xq.device.type == "cpu":
         return int8_matmul_plain(xq, xs, wq, ws)
     return _launch(xq, xs, wq, ws)
+
+
+@int8_matmul.register_fake
+def _(xq, xs, wq, ws):
+    return xq.new_empty((xq.shape[0], wq.shape[0]), dtype=torch.float32)
+
+
+def _int8_matmul_sharding(xq, xs, wq, ws):
+    """DTensor strategies of ``repro_torch::int8_matmul`` on one mesh
+    dim: replicated; x's rows (and their scales) sharded with w
+    replicated; w's columns (rows of ``wq``, and their scales) sharded
+    with x replicated.  K is never split, so every output element is the
+    unsharded product's, bit for bit."""
+    from torch.distributed.tensor import Replicate, Shard
+    r = Replicate()
+    return [([r], [r, r, r, r]),
+            ([Shard(0)], [Shard(0), Shard(0), r, r]),
+            ([Shard(1)], [r, r, Shard(0), Shard(1)])]
+
+
+register_sharding(torch.ops.repro_torch.int8_matmul.default)(
+    _int8_matmul_sharding)
 
 
 def _launch(xq, xs, wq, ws, splits: int | None = None) -> torch.Tensor:

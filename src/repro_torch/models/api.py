@@ -20,12 +20,16 @@ a machine without a card a CUDA model raises at construction.
 from __future__ import annotations
 
 import dataclasses
+import functools
+from typing import Any
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.models import transformer as T
 from repro_torch.models.common import Ctx, resolve_device
+from repro_torch.parallel.sharding import (axis_sizes, batch_placements,
+                                           is_dtensor)
 from repro_torch.quant.policy import PrecisionPolicy
 
 # MoE routers and SSM gate/Δ projections exempt from quant/prune by default
@@ -59,14 +63,79 @@ def _xent(cfg: ArchConfig, logits: torch.Tensor, labels: torch.Tensor):
             torch.cat([p[1] for p in parts], dim=1))
 
 
+def _mesh_xent(cfg: ArchConfig, mesh, logits, labels):
+    """:func:`_xent` of DTensor logits: gathered over the vocabulary (the
+    mesh axes other than batch's), then each rank's batch rows alone
+    (``local_map``), so that every row's sum is the unsharded one's."""
+    from torch.distributed.tensor.experimental import local_map
+    rows = batch_placements(mesh, rows=logits.shape[0])
+    logits = logits.redistribute(mesh, rows)
+    labels = labels.redistribute(mesh, rows)
+    return local_map(functools.partial(_xent, cfg), out_placements=(rows,
+                     rows), in_placements=(rows, rows), device_mesh=mesh)(
+        logits, labels)
+
+
 @dataclasses.dataclass
 class LMModel:
     cfg: ArchConfig
     device: torch.device
     policy: PrecisionPolicy | None = None
+    mesh: Any = None
+    fsdp_params: bool = False
 
     def ctx(self, decode: bool = False) -> Ctx:
-        return Ctx(policy=self.policy, decode=decode)
+        return Ctx(policy=self.policy, decode=decode, mesh=self.mesh)
+
+    # ----------------------------------------------------- dry-run surface
+    @functools.cached_property
+    def _abstract(self):
+        """The model on the ``meta`` device: shapes and dtypes, no
+        allocation."""
+        return (T.EncDec if self.cfg.enc_dec else T.LM)(self.cfg, "meta")
+
+    def abstract_params(self) -> T.LM | T.EncDec:
+        return self._abstract
+
+    def param_axes(self) -> dict:
+        """The JAX package's logical-axes tree of the parameters, in its
+        stacked layout (``param_tree()``'s keys; block leaves lead with
+        ``"layers"``)."""
+        return T.module_axes(self._abstract)
+
+    def abstract_cache(self, batch: int, seq_len: int,
+                       dtype: torch.dtype = torch.bfloat16):
+        """(the contiguous cache on the ``meta`` device, its axes)."""
+        cfg = self.cfg
+        if cfg.enc_dec:
+            cache = T.init_encdec_cache(self.ctx(), cfg, None, batch, seq_len,
+                                        dtype=dtype, device="meta")
+        else:
+            cache = T.init_lm_cache(cfg, batch, seq_len, dtype, "meta")
+        return cache, T.cache_axes(cfg)
+
+    def cache_axes(self, batch: int, seq_len: int) -> dict:
+        return T.cache_axes(self.cfg)
+
+    def input_specs(self, shape: ShapeSpec) -> dict[str, torch.Tensor]:
+        """``meta`` stand-ins for every model input of this shape (the
+        dry-run contract; no allocation), as the reference's
+        ``ShapeDtypeStruct`` stand-ins: int32 tokens and labels (B, S) — decode
+        (B, 1) tokens alone — and an enc-dec model's bf16 frames."""
+        def spec(shp, dtype=torch.int32):
+            return torch.empty(shp, dtype=dtype, device="meta")
+
+        b = shape.global_batch
+        if shape.is_decode:
+            return {"tokens": spec((b, 1))}
+        s = shape.seq_len
+        specs = {"tokens": spec((b, s)), "labels": spec((b, s))}
+        if self.cfg.enc_dec:
+            specs["frames"] = spec((b, self.cfg.n_frames, self.cfg.d_model),
+                                   torch.bfloat16)
+        if shape.kind == "prefill":
+            specs.pop("labels")
+        return specs
 
     def init(self, seed: int = 0) -> T.LM | T.EncDec:
         """Parameters drawn from a ``torch.Generator`` seeded with
@@ -100,7 +169,11 @@ class LMModel:
                                         batch["tokens"], enc_out=enc_out)
         else:
             logits, _ = T.lm_apply(ctx, self.cfg, params, batch["tokens"])
-        nll, logz = _xent(self.cfg, logits, batch["labels"])
+        if is_dtensor(logits):
+            nll, logz = _mesh_xent(self.cfg, self.mesh, logits,
+                                   batch["labels"])
+        else:
+            nll, logz = _xent(self.cfg, logits, batch["labels"])
         mean_nll = torch.mean(nll)
         # z-loss for stability at scale
         loss = mean_nll + 1e-4 * torch.mean(logz ** 2)
@@ -162,8 +235,31 @@ class LMModel:
         return T.lm_apply(ctx, self.cfg, params, tokens, cache=cache)
 
 
+# the families whose forward runs on DTensors
+MESH_FAMILIES = ("dense", "vlm")
+# the slice of ROADMAP Queue 1 that shards the experts over ``model``
+EXPERT_PARALLEL = ("expert parallelism (_moe_ep over a model axis wider "
+                   "than 1) waits for ROADMAP Queue 1's expert-parallel "
+                   "slice")
+
+
 def build_model(cfg: ArchConfig, policy: PrecisionPolicy | None = None,
-                device: str | torch.device | None = None) -> LMModel:
+                device: str | torch.device | None = None, *, mesh=None,
+                fsdp_params: bool = False) -> LMModel:
+    """The model handle; with ``mesh`` its parameters are expected as
+    DTensors on that mesh (``runtime/train_loop.py``).  A mesh takes the
+    dense decoders (GQA; the ``dense`` and ``vlm`` families): a MoE config
+    on a ``model`` axis wider than 1 raises naming the expert-parallel
+    slice, and the other families (MoE, SSM, hybrid, enc-dec) raise on
+    any mesh."""
     if policy is None:
         policy = PrecisionPolicy(default="bf16", exempt=DEFAULT_EXEMPT)
-    return LMModel(cfg=cfg, device=resolve_device(device), policy=policy)
+    if mesh is not None and cfg.is_moe \
+            and axis_sizes(mesh).get("model", 1) > 1:
+        raise NotImplementedError(f"{cfg.name}: {EXPERT_PARALLEL}")
+    if mesh is not None and (cfg.family not in MESH_FAMILIES or cfg.use_mla):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family on a device mesh waits "
+            f"with expert parallelism (ROADMAP Queue 1)")
+    return LMModel(cfg=cfg, device=resolve_device(device), policy=policy,
+                   mesh=mesh, fsdp_params=fsdp_params)

@@ -6,8 +6,9 @@ Conventions used across the model code:
   package and applied as ``x @ w``; contraction is always on axis 0 of
   the weight.
 - ``Ctx`` carries cross-cutting state through apply functions: the
-  quantization policy (the QUANTIZATION O-task's output) and whether the
-  call is a cached (decode / paged) one.
+  quantization policy (the QUANTIZATION O-task's output), whether the
+  call is a cached (decode / paged) one, and the device mesh when the
+  parameters are DTensors (``parallel/sharding.py``).
 - Random init draws from an explicit ``torch.Generator``; the numbers
   differ from ``jax.random`` for the same seed, so cross-framework tests
   move JAX parameters over with :mod:`repro_torch.convert`.
@@ -18,12 +19,15 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+from typing import Any
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor.experimental import register_sharding
 
 from repro_torch.kernels.quant_matmul import quant_matmul
+from repro_torch.parallel.sharding import is_dtensor
 from repro_torch.quant.policy import (BF16, FP32, FP8, INT8, PrecisionPolicy,
                                      to_fp8_e4m3fn)
 
@@ -45,6 +49,7 @@ class Ctx:
     """Apply-time context threaded through every layer."""
     policy: PrecisionPolicy | None = None
     decode: bool = False
+    mesh: Any = None
 
     def level_for(self, name: str) -> str:
         if self.policy is None:
@@ -119,10 +124,79 @@ ROW_BLOCK = 256
 
 def row_invariant_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` for ``x`` (..., S, K) and ``w`` (K, N); on the card with
-    S > 1 through :func:`blocked_matmul`."""
-    if not x.is_cuda or x.dim() < 3 or x.shape[-2] == 1:
-        return torch.matmul(x, w)
-    return blocked_matmul(x, w)
+    S > 1 through :func:`blocked_matmul`.  A DTensor ``x`` (B, S, K), and
+    a card's with S > 1, go through the op ``repro_torch::matmul``: its
+    sharding rule lets DTensor place the product (batch rows, the
+    weight's columns, or its rows with a partial sum) and its backward is
+    written out, so that one product on a one-rank mesh has the bits of
+    the same product on plain tensors."""
+    if x.dim() == 3 and (is_dtensor(x) or (x.is_cuda and x.shape[1] > 1)):
+        return torch.ops.repro_torch.matmul(x, w)
+    return torch.matmul(x, w)
+
+
+def _row_invariant_local(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    if x.is_cuda and x.shape[-2] > 1:
+        return blocked_matmul(x, w)
+    return torch.matmul(x, w)
+
+
+@torch.library.custom_op("repro_torch::matmul", mutates_args=())
+def _matmul_op(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B, S, K) @ w (K, N) on plain (local) tensors: the card's fixed
+    row blocks for S > 1, else one product."""
+    return _row_invariant_local(x, w)
+
+
+@_matmul_op.register_fake
+def _(x, w):
+    return x.new_empty((*x.shape[:-1], w.shape[1]))
+
+
+def _matmul_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _matmul_backward(ctx, g):
+    """``gx = g @ w.T`` (the same op: row blocks on the card) and ``gw =
+    x.T @ g`` over the flattened rows (one product)."""
+    x, w = ctx.saved_tensors
+    gx = gw = None
+    if ctx.needs_input_grad[0]:
+        gx = like(torch.ops.repro_torch.matmul(g, w.t()), x)
+    if ctx.needs_input_grad[1]:
+        gw = like(torch.matmul(x.reshape(-1, x.shape[-1]).t(),
+                               g.reshape(-1, g.shape[-1])), w)
+    return gx, gw
+
+
+def like(g: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """A gradient in the placements of the DTensor ``t`` it belongs to
+    (DTensor runs an op in the placements its rule picks, below autograd,
+    so a backward's result may come out in others); plain tensors, and
+    the gradient of a partial sum (no placement to return to), pass."""
+    if (is_dtensor(g) and tuple(g.placements) != tuple(t.placements)
+            and not any(p.is_partial() for p in t.placements)):
+        return g.redistribute(t.device_mesh, t.placements)
+    return g
+
+
+_matmul_op.register_autograd(_matmul_backward, setup_context=_matmul_setup)
+
+
+def _matmul_sharding(x, w):
+    """DTensor strategies of ``repro_torch::matmul`` on one mesh dim:
+    replicated; the batch rows sharded; the weight's columns sharded
+    (the output's); the weight's rows and x's K sharded (a partial
+    sum)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    return [([Replicate()], [Replicate(), Replicate()]),
+            ([Shard(0)], [Shard(0), Replicate()]),
+            ([Shard(2)], [Replicate(), Shard(1)]),
+            ([Partial()], [Shard(2), Shard(0)])]
+
+
+register_sharding(torch.ops.repro_torch.matmul.default)(_matmul_sharding)
 
 
 def blocked_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -168,9 +242,9 @@ class Int8MatmulSTE(torch.autograd.Function):
         gf = g.float()
         gx = gw = None
         if ctx.needs_input_grad[0]:
-            gx = torch.matmul(gf, w.float().t()).to(x.dtype)
+            gx = like(torch.matmul(gf, w.float().t()).to(x.dtype), x)
         if ctx.needs_input_grad[1]:
-            gw = torch.matmul(x.float().t(), gf).to(w.dtype)
+            gw = like(torch.matmul(x.float().t(), gf).to(w.dtype), w)
         return gx, gw
 
 
@@ -266,3 +340,15 @@ def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 
 def act_fn(kind: str):
     return {"silu": F.silu, "gelu": _gelu_tanh, "relu": F.relu}[kind]
+
+
+def shard_hidden(ctx: Ctx, x: torch.Tensor) -> torch.Tensor:
+    """Activations sharded on batch over (pod, data): a DTensor ``x`` is
+    redistributed to its batch rows over the data-parallel mesh axes,
+    replicated over the others (the reference's sharding constraint).
+    Plain tensors, and a context without a mesh, pass through."""
+    if ctx.mesh is None or not is_dtensor(x):
+        return x
+    from repro_torch.parallel.sharding import batch_placements
+    return x.redistribute(ctx.mesh, batch_placements(ctx.mesh,
+                                                     rows=x.shape[0]))

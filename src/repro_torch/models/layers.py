@@ -39,6 +39,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import (Ctx, Norm, act_fn, apply_rope,
                                        dense_init, linear, norm_apply,
                                        row_invariant_matmul)
+from repro_torch.parallel.sharding import (DP_AXES, axis_sizes,
+                                           batch_placements, is_dtensor)
 
 NEG_INF = -1e30
 EMPTY_POS = 2**30
@@ -67,6 +69,13 @@ class Attention(nn.Module):
     norms 1); without one they are left uninitialised for
     ``load_state_dict``."""
 
+    # the JAX package's logical axes of each parameter; a Norm child's
+    # entry names the axis of its scale and bias ("embed" when absent)
+    AXES = {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+            "wv": ("embed", "kv_heads"), "wo": ("heads", "embed"),
+            "bq": ("heads",), "bk": ("kv_heads",), "bv": ("kv_heads",),
+            "q_norm": "head_dim", "k_norm": "head_dim"}
+
     def __init__(self, cfg: ArchConfig, device=None,
                  gen: torch.Generator | None = None):
         super().__init__()
@@ -94,7 +103,7 @@ def _q(ctx: Ctx, cfg: ArchConfig, p: Attention, x: torch.Tensor):
     """The query projection of ``x`` (B, S, d): (B, S, H, hd)."""
     b, s, _ = x.shape
     q = linear(ctx, "attn/wq", x, p.wq, getattr(p, "bq", None))
-    q = q.reshape(b, s, cfg.n_heads, cfg.hd)
+    q = _whole_heads(q, cfg.n_heads).reshape(b, s, cfg.n_heads, cfg.hd)
     if cfg.qk_norm:
         q = norm_apply(cfg.norm, p.q_norm, q)
     return q
@@ -106,10 +115,25 @@ def _kv(ctx: Ctx, cfg: ArchConfig, p: Attention, x: torch.Tensor):
     b, s, _ = x.shape
     k = linear(ctx, "attn/wk", x, p.wk, getattr(p, "bk", None))
     v = linear(ctx, "attn/wv", x, p.wv, getattr(p, "bv", None))
-    k = k.reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    k = _whole_heads(k, cfg.n_kv_heads).reshape(b, s, cfg.n_kv_heads, cfg.hd)
     if cfg.qk_norm:
         k = norm_apply(cfg.norm, p.k_norm, k)
+    v = _whole_heads(v, cfg.n_kv_heads)
     return k, v.reshape(b, s, cfg.n_kv_heads, cfg.hd)
+
+
+def _whole_heads(t, n_heads: int):
+    """A projection's output (B, S, heads · hd) whose last dim is sharded
+    where ``n_heads`` does not divide by the mesh dim (the weight's
+    columns shard by ``hd``-wide parts of a head): gathered over that
+    mesh dim, so each rank holds whole heads.  Plain tensors pass."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+    pls = [Replicate() if isinstance(p, Shard) and p.dim == t.ndim - 1
+           and n_heads % t.device_mesh.size(i) else p
+           for i, p in enumerate(t.placements)]
+    return t.redistribute(t.device_mesh, pls)
 
 
 def _qkv(ctx: Ctx, cfg: ArchConfig, p: Attention, x: torch.Tensor):
@@ -267,6 +291,9 @@ def attention(ctx: Ctx, cfg: ArchConfig, p: Attention, x, positions,
 
     ``positions``: (S,) or per-request (R, S) absolute query positions.
     """
+    if ctx.mesh is not None and is_dtensor(x):
+        # a mesh takes the decoder-only families: no cross-attention
+        return _mesh_attention(ctx, cfg, p, x, positions, cache, causal)
     b, s, _ = x.shape
     h, hd = cfg.n_heads, cfg.hd
     if kv_override is not None:
@@ -299,11 +326,193 @@ def attention(ctx: Ctx, cfg: ArchConfig, p: Attention, x, positions,
     return y, cache
 
 
+# =====================================================================
+# Attention on a device mesh
+# =====================================================================
+def seq_sharded(ctx: Ctx) -> bool:
+    """The reference's guard: the mesh has a ``model`` axis wider than 1.
+    The attention kernels take raw pointers and carry no sharding rule,
+    so they run only where it is false; the plain attention runs
+    otherwise (the reference keeps its jnp path there too)."""
+    return (ctx.mesh is not None
+            and axis_sizes(ctx.mesh).get("model", 1) > 1)
+
+
+def _heads_placements(ctx: Ctx, cfg: ArchConfig, rows: int,
+                      split: bool | None = None) -> tuple:
+    """Placements of q/k/v (B, S, heads, hd) under which a rank's
+    attention is exact: the ``rows`` batch rows over the data-parallel
+    axes (where they divide), heads over ``model`` when both the query
+    and the KV heads divide (each rank then holds whole GQA groups),
+    else whole."""
+    from torch.distributed.tensor import Shard
+    m = axis_sizes(ctx.mesh).get("model", 1)
+    if split is None:
+        split = cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0
+    return tuple(Shard(2) if a == "model" and split else p for a, p in
+                 zip(ctx.mesh.mesh_dim_names,
+                     batch_placements(ctx.mesh, rows=rows)))
+
+
+def _local(ctx: Ctx, fn, placements: tuple, out: tuple, *args):
+    """``fn`` on each rank's local tensors (``local_map``): the args are
+    first redistributed to ``placements`` (one per arg); the output takes
+    ``out``.  A kernel wrapper never sees a DTensor."""
+    from torch.distributed.tensor.experimental import local_map
+    return local_map(fn, out_placements=list(out), in_placements=placements,
+                     device_mesh=ctx.mesh, redistribute_inputs=True)(*args)
+
+
+def _mesh_attention(ctx: Ctx, cfg: ArchConfig, p: Attention, x, positions,
+                    cache, causal):
+    """:func:`attention` on DTensors: the projections are sharded products
+    (``linear``), the attention itself runs on each rank's batch rows and
+    heads (:func:`_heads_placements`, ``local_map``), and ``wo``'s
+    row-parallel product sums the heads' parts.  The contiguous cache is
+    a DTensor placed by the rules (``cache_shardings``); its sequence may
+    be sharded over ``model`` (:func:`_mesh_decode`).  The paged cache
+    serves on one device only."""
+    b, s, _ = x.shape
+    h, hd = cfg.n_heads, cfg.hd
+    pl = _heads_placements(ctx, cfg, b)
+    if cache is not None and "k_pages" in cache:
+        raise NotImplementedError("the paged cache serves on one device; "
+                                  "a mesh takes the contiguous cache")
+    q, k, v = _qkv(ctx, cfg, p, x)
+    if cache is not None and ctx.decode:
+        out, cache = _mesh_decode(ctx, cfg, q, k, v, cache, positions)
+    else:
+        def core(q, k, v, *kv_cache):
+            if cfg.use_rope:
+                q = apply_rope(q, positions, cfg.rope_theta)
+                k = apply_rope(k, positions, cfg.rope_theta)
+            # the heads a rank holds: q.shape[2], not cfg.n_heads
+            o = mea_attention(q, _expand_kv(k, q.shape[2]),
+                              _expand_kv(v, q.shape[2]), positions,
+                              positions, causal=causal,
+                              window=cfg.sliding_window,
+                              chunk=cfg.attn_chunk,
+                              bf16_operands=cfg.mea_bf16)
+            if kv_cache:
+                _fill_contiguous_cache(
+                    cfg, k, v, dict(zip("kv", kv_cache)),
+                    chunk=coord[:2] if coord else (0, 1))
+            return o
+
+        args, pls, coord = (q, k, v), (pl, pl, pl), None
+        if cache is not None:
+            cpl, qpl, coord = _cache_layout(ctx, cfg, cache["k"])
+            args, pls = (q, k, v, cache["k"], cache["v"]), (qpl,) * 3 + (
+                cpl, cpl)
+            pl = qpl
+        out = _local(ctx, core, pls, pl, *args)
+        if cache is not None:
+            cache = {"k": cache["k"], "v": cache["v"], "pos": s}
+    y = linear(ctx, "attn/wo", out.reshape(b, s, h * hd), p.wo)
+    return y, cache
+
+
+def _cache_layout(ctx: Ctx, cfg: ArchConfig, ck) -> tuple:
+    """(the cache's placements, the q/k/v placements that match them,
+    (this rank's sequence chunk, the chunks) or None): the cache's
+    batch rows and, over ``model``, its KV heads (q's heads follow) or
+    its sequence (q, k, v whole there)."""
+    from torch.distributed.tensor import Shard
+    cpl = tuple(ck.placements)
+    names = ctx.mesh.mesh_dim_names
+    heads = any(isinstance(p, Shard) and p.dim == 2 for p in cpl)
+    qpl = _heads_placements(ctx, cfg, ck.shape[0], split=heads)
+    seq = [i for i, p in enumerate(cpl) if isinstance(p, Shard)
+           and p.dim == 1 and ctx.mesh.size(i) > 1]
+    if len(seq) > 1:
+        raise NotImplementedError("a cache sequence over two mesh axes")
+    coord = None
+    if seq:
+        i = seq[0]
+        coord = (ctx.mesh.get_coordinate()[i], ctx.mesh.size(i),
+                 ctx.mesh.get_group(names[i]))
+    # the batch rows must sit where q's do
+    for a, p, want in zip(names, cpl, qpl):
+        if a in DP_AXES and p != want:
+            raise NotImplementedError(f"cache placement {cpl} does not keep "
+                                      f"the batch over {a}")
+    return cpl, qpl, coord
+
+
+def _mesh_decode(ctx: Ctx, cfg: ArchConfig, q, k, v, cache, positions):
+    """Cached decode of ``s`` tokens on a mesh, each rank on its batch
+    rows.  A cache whole over ``model`` (or split by KV heads) runs
+    :func:`_contiguous_attention_decode` on the rank's rows and heads —
+    flash_decode where the mesh has no ``model`` axis wider than 1
+    (:func:`seq_sharded`), the plain masked attention otherwise.  A cache
+    whose sequence is sharded over ``model`` holds ``cache_len / m``
+    slots a rank: the token is written by the rank that holds its slot,
+    each rank takes the softmax's max, sum and weighted values over its
+    slots, and an all-reduce of the three over ``model`` combines them
+    (flash-decoding across ranks)."""
+    cpl, qpl, coord = _cache_layout(ctx, cfg, cache["k"])
+    pos = int(cache["pos"])
+    plain = seq_sharded(ctx)
+
+    def rope(q, k):
+        if cfg.use_rope:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+        return q, k
+
+    def whole(q, k, v, ck, cv):
+        return _contiguous_attention_decode(
+            cfg, *rope(q, k), v, {"k": ck, "v": cv, "pos": pos},
+            kernel=not plain)[0]
+
+    def split(q, k, v, ck, cv):
+        return _seq_split_decode(cfg, *rope(q, k), v, ck, cv, pos, coord)
+
+    out = _local(ctx, split if coord else whole, (qpl,) * 3 + (cpl, cpl),
+                 qpl, q, k, v, cache["k"], cache["v"])
+    return out, {"k": cache["k"], "v": cache["v"], "pos": pos + q.shape[1]}
+
+
+def _seq_split_decode(cfg: ArchConfig, q, k, v, ck, cv, pos: int, coord):
+    """One rank's part of :func:`_mesh_decode` over a sequence-sharded
+    cache: (r, m, group) = this rank's chunk, the chunks and the ``model``
+    process group.  fp32 inside, out in q's dtype."""
+    from torch.distributed import _functional_collectives as funcol
+    r, m, group = coord
+    s = q.shape[1]
+    local_len = ck.shape[1]
+    lo = r * local_len
+    start, mask = _decode_slots(cfg, pos, s, local_len * m, ck.device)
+    for j in range(s):                    # the rows this rank holds
+        if lo <= start + j < lo + local_len:
+            ck[:, start + j - lo] = k[:, j].to(ck.dtype)
+            cv[:, start + j - lo] = v[:, j].to(cv.dtype)
+    mask = mask[lo:lo + local_len]
+    h = q.shape[2]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    sgl = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale,
+                       _expand_kv(ck, h).float())
+    sgl = torch.where(mask[None, None, None, :], sgl, NEG_INF)
+    mx = funcol.all_reduce(sgl.amax(dim=-1), "max", group)
+    w = torch.exp(sgl - mx[..., None])
+    den = funcol.all_reduce(w.sum(dim=-1), "sum", group)
+    num = funcol.all_reduce(
+        torch.einsum("bhqk,bkhd->bqhd", w, _expand_kv(cv, h).float()),
+        "sum", group)
+    return (num / den.transpose(1, 2)[..., None]).to(q.dtype)
+
+
 def cache_len_for(cfg: ArchConfig, seq_len: int) -> int:
     """Slots of a contiguous cache for ``seq_len`` tokens: all of them, or
     the window under a sliding window (the ring buffer)."""
     return seq_len if not cfg.sliding_window else min(seq_len,
                                                       cfg.sliding_window)
+
+
+# the logical axes of one layer's contiguous cache (the JAX package's)
+ATTN_CACHE_AXES = {"k": ("batch", "cache_seq", "kv_heads", "head_dim"),
+                   "v": ("batch", "cache_seq", "kv_heads", "head_dim"),
+                   "pos": ()}
 
 
 def init_attention_cache(cfg: ArchConfig, batch: int, seq_len: int,
@@ -318,55 +527,72 @@ def init_attention_cache(cfg: ArchConfig, batch: int, seq_len: int,
             "pos": 0}
 
 
-def _contiguous_attention_decode(cfg: ArchConfig, q, k, v, cache):
+def _decode_slots(cfg: ArchConfig, pos: int, s: int, cache_len: int,
+                  device) -> tuple:
+    """(start, mask) of ``s`` new tokens at ``pos`` in a cache of
+    ``cache_len`` slots: the first slot they are written at — ``pos``
+    (``pos % cache_len`` in the ring), clamped so the ``s`` rows fit, as
+    the JAX package's ``dynamic_update_slice`` clamps — and the
+    batch-shared mask over every slot from :func:`kv_positions_for_cache`
+    / :func:`decode_attention_mask`."""
+    idx = pos % cache_len if cfg.sliding_window else pos
+    kv_pos = kv_positions_for_cache(pos, cache_len, cfg.sliding_window,
+                                    device=device)
+    return (min(max(idx, 0), cache_len - s),
+            decode_attention_mask(kv_pos, pos, cfg.sliding_window))
+
+
+def _contiguous_attention_decode(cfg: ArchConfig, q, k, v, cache,
+                                 kernel: bool = True):
     """Cached attention of ``s`` new tokens at ``cache["pos"]``.
 
-    q/k/v: (B, s, ·, hd), already roped at ``pos + i``.  The new K/V is
-    written in place at slot ``pos`` (``pos % cache_len`` in the ring),
-    with the start clamped so the ``s`` rows fit, as the JAX package's
-    ``dynamic_update_slice`` clamps; then every query attends the cache
-    under the batch-shared mask from :func:`kv_positions_for_cache` /
-    :func:`decode_attention_mask` at ``pos`` — through flash_decode for
-    one token, through the plain masked attention for ``s > 1`` (the
-    kernel is single-token, as the JAX package's is).  The write precedes
-    the kernel's read on the same stream.  Returns (out, cache with
-    ``pos + s``)."""
+    q/k/v: (B, s, ·, hd), already roped at ``pos + i``; the heads are
+    q's (a rank's part on a mesh).  The new K/V is written in place
+    from :func:`_decode_slots`' start; then every query attends the
+    cache under its mask — through flash_decode for one token (with
+    ``kernel``), through the plain masked attention for ``s > 1`` (the
+    kernel is single-token, as the JAX package's is) or without
+    ``kernel``.  The write precedes the kernel's read on the same
+    stream.  Returns (out, cache with ``pos + s``)."""
     from repro_torch.kernels.flash_decode import flash_decode
     ck, cv = cache["k"], cache["v"]
     pos = int(cache["pos"])
     s = q.shape[1]
-    cache_len = ck.shape[1]
-    idx = pos % cache_len if cfg.sliding_window else pos
-    start = min(max(idx, 0), cache_len - s)
+    start, mask = _decode_slots(cfg, pos, s, ck.shape[1], ck.device)
     ck[:, start:start + s] = k.to(ck.dtype)
     cv[:, start:start + s] = v.to(cv.dtype)
-    kv_pos = kv_positions_for_cache(pos, cache_len, cfg.sliding_window,
-                                    device=ck.device)
-    mask = decode_attention_mask(kv_pos, pos, cfg.sliding_window)
-    if s == 1:
+    if s == 1 and kernel:
         out = flash_decode(q.contiguous(), ck, cv, mask)
     else:
-        out = _masked_decode_attention(q, ck, cv, mask, cfg.n_heads)
+        out = _masked_decode_attention(q, ck, cv, mask, q.shape[2])
     return out, {"k": ck, "v": cv, "pos": pos + s}
 
 
-def _fill_contiguous_cache(cfg: ArchConfig, k, v, cache):
+def _fill_contiguous_cache(cfg: ArchConfig, k, v, cache,
+                           chunk: tuple = (0, 1)):
     """Prefill of ``s`` tokens from position 0: the last ``cache_len`` of
     them go into the cache in place, rotated under a sliding window so
     position ``p`` sits at slot ``p % cache_len`` (the layout decode's
-    :func:`kv_positions_for_cache` recovers).  Returns the cache with
-    ``pos = s``."""
+    :func:`kv_positions_for_cache` recovers).  With ``chunk`` = (r, m)
+    the cache holds the r-th of m equal chunks of the slots (a rank's
+    part of a sequence-sharded cache) and only those are written.
+    Returns the cache with ``pos = s``."""
     ck, cv = cache["k"], cache["v"]
     s = k.shape[1]
-    cache_len = ck.shape[1]
+    r, m = chunk
+    rows = ck.shape[1]
+    cache_len = rows * m
     kk, vv = (k, v) if s <= cache_len else (k[:, -cache_len:],
                                             v[:, -cache_len:])
     if cfg.sliding_window and s > cache_len:
         shift = s % cache_len
         kk = torch.roll(kk, shift, dims=1)
         vv = torch.roll(vv, shift, dims=1)
-    ck[:, :kk.shape[1]] = kk.to(ck.dtype)
-    cv[:, :vv.shape[1]] = vv.to(cv.dtype)
+    lo = r * rows
+    hi = min(lo + rows, kk.shape[1])
+    if hi > lo:
+        ck[:, :hi - lo] = kk[:, lo:hi].to(ck.dtype)
+        cv[:, :hi - lo] = vv[:, lo:hi].to(cv.dtype)
     return {"k": ck, "v": cv, "pos": s}
 
 
@@ -453,6 +679,11 @@ class MLA(nn.Module):
     ``q_lora_rank`` is 0), the compressed K/V path ``wkv_a`` (to
     ``kv_lora_rank + rope_head_dim``) → ``kv_a_norm``, its expansion
     ``wkv_b`` (to the heads' nope keys and values) and ``wo``."""
+
+    AXES = {"wq_a": ("embed", "q_lora"), "wq_b": ("q_lora", "heads"),
+            "q_a_norm": "q_lora", "wq": ("embed", "heads"),
+            "wkv_a": ("embed", "kv_lora"), "kv_a_norm": "kv_lora",
+            "wkv_b": ("kv_lora", "heads"), "wo": ("heads", "embed")}
 
     def __init__(self, cfg: ArchConfig, device=None,
                  gen: torch.Generator | None = None):
@@ -553,6 +784,10 @@ def mla_attention(ctx: Ctx, cfg: ArchConfig, p: MLA, x, positions,
     return y, cache
 
 
+MLA_CACHE_AXES = {"ckv": ("batch", "cache_seq", "kv_lora"),
+                  "krope": ("batch", "cache_seq", None), "pos": ()}
+
+
 def init_mla_cache(cfg: ArchConfig, batch: int, seq_len: int,
                    dtype=torch.bfloat16, device=None) -> dict:
     """One layer's compressed decode cache: ``ckv`` (B, seq_len,
@@ -574,6 +809,10 @@ class MLP(nn.Module):
     width ``d_ff`` (``cfg.d_ff`` by default); drawn from ``gen`` as the JAX
     package's ``init_mlp`` draws them, or left uninitialised without
     one."""
+
+    AXES = {"w_gate": ("embed", "ffn"), "w_up": ("embed", "ffn"),
+            "w_down": ("ffn", "embed"), "b_up": ("ffn",),
+            "b_down": ("embed",)}
 
     def __init__(self, cfg: ArchConfig, device=None,
                  gen: torch.Generator | None = None,
@@ -624,6 +863,11 @@ class MoE(nn.Module):
     ``w_gate``/``w_up`` (E, d, f) and ``w_down`` (E, f, d), and with shared
     experts ``shared``, a GLU :class:`MLP` of width ``d_expert ×
     n_shared_experts``."""
+
+    AXES = {"router": ("embed", None),
+            "w_gate": ("experts", "embed", "expert_ffn"),
+            "w_up": ("experts", "embed", "expert_ffn"),
+            "w_down": ("experts", "expert_ffn", "embed")}
 
     def __init__(self, cfg: ArchConfig, device=None,
                  gen: torch.Generator | None = None):

@@ -81,6 +81,12 @@ class Mamba2(nn.Module):
     generator the random weights are drawn in init order; without one
     they are left uninitialised for ``load_state_dict``."""
 
+    AXES = {"in_proj": ("embed", "ssm_inner"),
+            "conv_w": ("conv_k", "ssm_inner"), "conv_b": ("ssm_inner",),
+            "A_log": ("ssm_heads",), "D": ("ssm_heads",),
+            "dt_bias": ("ssm_heads",), "norm_scale": ("ssm_inner",),
+            "out_proj": ("ssm_inner", "embed")}
+
     def __init__(self, cfg: ArchConfig, device=None,
                  gen: torch.Generator | None = None):
         super().__init__()
@@ -241,6 +247,11 @@ def _ssd_chunked(cfg: ArchConfig, xc, bc, cc, dt, a, d_skip):
     return y.reshape(b, s, d_in)[:, :s_orig], h
 
 
+# the logical axes of each recurrent state (the JAX package's)
+MAMBA2_STATE_AXES = {"conv": ("batch", None, "ssm_inner"),
+                     "ssd": ("batch", "ssm_heads", None, None)}
+
+
 def init_mamba2_state(cfg: ArchConfig, batch: int, dtype=torch.float32,
                       device=None) -> dict:
     """One layer's decode state: ``conv`` (B, K-1, conv_dim) in ``dtype``
@@ -261,6 +272,13 @@ class MLSTM(nn.Module):
     ``wq``/``wk``/``wv``, the input and forget gate projection ``w_if``
     with its bias ``b_if`` (0 for the input gates, 3 for the forget
     gates), ``norm_scale`` and ``w_down``."""
+
+    AXES = {"w_up": ("embed", "ssm_inner"), "w_gate": ("embed", "ssm_inner"),
+            "conv_w": ("conv_k", "ssm_inner"), "conv_b": ("ssm_inner",),
+            "wq": ("ssm_inner", "heads"), "wk": ("ssm_inner", "heads"),
+            "wv": ("ssm_inner", "heads"), "w_if": ("ssm_inner", None),
+            "b_if": (None,), "norm_scale": ("ssm_inner",),
+            "w_down": ("ssm_inner", "embed")}
 
     def __init__(self, cfg: ArchConfig, device=None,
                  gen: torch.Generator | None = None):
@@ -397,6 +415,11 @@ def _mlstm_chunked(cfg: ArchConfig, q, k, v, logi, logf):
     return y[:, :s_orig], (C, n, m)
 
 
+MLSTM_STATE_AXES = {"conv": ("batch", None, "ssm_inner"),
+                    "C": ("batch", "heads", None, None),
+                    "n": ("batch", "heads", None), "m": ("batch", "heads")}
+
+
 def init_mlstm_state(cfg: ArchConfig, batch: int, dtype=torch.float32,
                      device=None) -> dict:
     """One layer's decode state: ``conv`` (B, K-1, 2d) in ``dtype``, ``C``
@@ -445,6 +468,10 @@ class SLSTM(nn.Module):
     gates), the block-diagonal recurrent weights ``r`` (4, H, dh, dh),
     ``gn_scale``, ``w_out`` and the post-cell gated FFN ``w_ff_up`` /
     ``w_ff_down`` (pf = 4/3)."""
+
+    AXES = {"w_in": ("embed", None), "r": (None, "heads", None, None),
+            "b": (None,), "gn_scale": ("embed",), "w_out": ("embed", "embed"),
+            "w_ff_up": ("embed", "ffn"), "w_ff_down": ("ffn", "embed")}
 
     def __init__(self, cfg: ArchConfig, device=None,
                  gen: torch.Generator | None = None):
@@ -522,6 +549,9 @@ def slstm_apply(ctx: Ctx, cfg: ArchConfig, p: SLSTM, x: torch.Tensor,
     f1, f2 = ff.chunk(2, dim=-1)
     ffh = (_gelu_tanh(f1.float()) * f2.float()).to(x.dtype)
     return y + linear(ctx, "slstm/w_ff_down", ffh, p.w_ff_down), state
+
+
+SLSTM_STATE_AXES = {k: ("batch", "heads", None) for k in ("h", "c", "n", "m")}
 
 
 def init_slstm_state(cfg: ArchConfig, batch: int, device=None) -> dict:

@@ -35,6 +35,7 @@ import functools
 
 import torch
 from torch import nn
+from torch.distributed.tensor import Shard
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -42,19 +43,23 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.common import (Ctx, Norm, dense_init, embed_init,
-                                       linear, norm_apply,
+                                       linear, norm_apply, shard_hidden,
                                        sinusoid_positions)
+from repro_torch.parallel.sharding import batch_placements, is_dtensor
 
 
 # ----------------------------------------------------------------- remat
 def _dots_policy(ctx, op, *args, **kwargs):
     """``"dots"``: save the outputs of plain matrix products — ``mm`` and
     ``addmm``, products with no batch dimension, as JAX's
-    ``dots_with_no_batch_dims_saveable`` — and the int8 product's
-    (``quant_matmul``'s kernel launch, an op of its own so that the
-    policy sees it and the backward does not launch it again); recompute
-    the rest (the attention's batched products among it)."""
+    ``dots_with_no_batch_dims_saveable``, and ``repro_torch::matmul``,
+    the weight products of ``linear`` over more than one token on the
+    card or over DTensors — and the int8 product's (``quant_matmul``'s
+    kernel launch, an op of its own so that the policy sees it and the
+    backward does not launch it again); recompute the rest (the
+    attention's batched products among it)."""
     if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+              torch.ops.repro_torch.matmul.default,
               torch.ops.repro_torch.int8_matmul.default):
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
@@ -144,6 +149,8 @@ class LM(nn.Module):
     With a generator every weight is drawn in init order; without one
     the module is allocated uninitialised for ``load_state_dict``."""
 
+    AXES = {"embed": ("vocab", "embed"), "lm_head": ("embed", "vocab")}
+
     def __init__(self, cfg: ArchConfig, device=None,
                  gen: torch.Generator | None = None):
         super().__init__()
@@ -189,19 +196,8 @@ class LM(nn.Module):
         With ``per_block`` each stacked leaf is instead the list of the
         blocks' own parameters, in layer order: the tree that training
         differentiates and updates (``optim/optimizers.py``)."""
-        stacked: dict = {}
-        for name, _ in self.blocks[0].named_parameters():
-            layers = [blk.get_parameter(name) for blk in self.blocks]
-            t = layers[0]
-            if per_block:
-                leaf = layers
-            elif t.ndim == 1:
-                leaf = torch.stack([p.detach() for p in layers])
-            else:
-                leaf = torch.empty((len(layers), *t.shape), dtype=t.dtype,
-                                   device="meta")
-            _put(stacked, name, leaf)
-        tree = {"embed": self.embed, "blocks": _sorted_tree(stacked)}
+        tree = {"embed": self.embed,
+                "blocks": _stacked_tree(self.blocks, per_block)}
         if hasattr(self, "shared"):
             tree["shared"] = {}
             for name, t in self.shared.named_parameters():
@@ -210,6 +206,53 @@ class LM(nn.Module):
         if hasattr(self, "lm_head"):
             tree["lm_head"] = self.lm_head
         return tree
+
+
+def _stacked_tree(blocks: nn.ModuleList, per_block: bool) -> dict:
+    """The block parameters of ``blocks`` as the JAX layout's stacked
+    subtree (keys sorted): a shape-only (L, …) ``meta`` leaf for a
+    matrix, a real (L, d) stack for a vector, or with ``per_block`` the
+    list of the blocks' own tensors (:meth:`LM.param_tree`)."""
+    stacked: dict = {}
+    for name, _ in blocks[0].named_parameters():
+        layers = [blk.get_parameter(name) for blk in blocks]
+        t = layers[0]
+        if per_block:
+            leaf = layers
+        elif t.ndim == 1:
+            leaf = torch.stack([p.detach() for p in layers])
+        else:
+            leaf = torch.empty((len(layers), *t.shape), dtype=t.dtype,
+                               device="meta")
+        _put(stacked, name, leaf)
+    return _sorted_tree(stacked)
+
+
+def module_axes(module: nn.Module) -> dict:
+    """The JAX package's logical-axes tree of ``module``'s parameters,
+    in its layout: each parameter's axes from its owner's ``AXES``, a
+    :class:`Norm`'s ``(axis,)`` from its parent's entry (``"embed"`` when
+    there is none), and a block list as one stacked subtree whose axes
+    lead with ``"layers"``."""
+    table = getattr(type(module), "AXES", {})
+    out: dict = {}
+    for name, _ in module.named_parameters(recurse=False):
+        out[name] = table[name]
+    for name, child in module.named_children():
+        if isinstance(child, Norm):
+            ax = (table.get(name, "embed"),)
+            out[name] = {n: ax for n, _ in child.named_parameters()}
+        elif isinstance(child, nn.ModuleList):
+            out[name] = _prefix_layers(module_axes(child[0]))
+        else:
+            out[name] = module_axes(child)
+    return out
+
+
+def _prefix_layers(axes):
+    if isinstance(axes, dict):
+        return {k: _prefix_layers(v) for k, v in axes.items()}
+    return ("layers",) + tuple(axes)
 
 
 def _put(tree: dict, name: str, leaf) -> None:
@@ -243,7 +286,7 @@ def lm_block_apply(ctx: Ctx, cfg: ArchConfig, p: Block, x, positions,
         f = L.moe_ffn(ctx, cfg, p.moe, h)
     else:
         f = L.mlp(ctx, cfg, p.mlp, h)
-    return x + f, cache
+    return shard_hidden(ctx, x + f), cache
 
 
 def xlstm_block_apply(ctx: Ctx, cfg: ArchConfig, p: XLSTMBlock, x,
@@ -343,7 +386,7 @@ def lm_apply(ctx: Ctx, cfg: ArchConfig, params: LM, tokens, positions=None,
     hybrid), or xLSTM's one ``pos`` plus S.
     """
     if tokens.ndim == 2:
-        x = params.embed[tokens].to(cfg.adt)
+        x = _embed(params.embed, tokens).to(cfg.adt)
     else:
         x = tokens.to(cfg.adt)
     b, s = x.shape[:2]
@@ -356,6 +399,7 @@ def lm_apply(ctx: Ctx, cfg: ArchConfig, params: LM, tokens, positions=None,
                 s, device=x.device)
         else:
             positions = torch.arange(s, device=x.device)
+    x = shard_hidden(ctx, x)
 
     if cfg.family == "hybrid":
         x, new_cache = _hybrid_stack(ctx, cfg, params, x, positions, cache)
@@ -399,6 +443,35 @@ def lm_apply(ctx: Ctx, cfg: ArchConfig, params: LM, tokens, positions=None,
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
     logits = linear(ctx, "lm_head", x, head)
     return logits, new_cache
+
+
+def _embed(table, tokens):
+    """``table[tokens]``.  On a mesh, outside autograd, a table whose
+    vocabulary is sharded takes ``F.embedding``'s vocab-parallel rule
+    (each rank looks up the rows it holds, a sum combines them) rather
+    than gathering it; otherwise each rank indexes the whole table with
+    its batch rows (``local_map``), the table's gradient a partial sum
+    over the data-parallel axes — the unsharded op on each rank."""
+    if not is_dtensor(table):
+        return table[tokens]
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    rows = batch_placements(mesh, rows=tokens.shape[0])
+    if not torch.is_grad_enabled() and any(
+            isinstance(p, Shard) and p.dim == 0 and mesh.size(i) > 1
+            for i, p in enumerate(table.placements)):
+        # the partial rows are summed at once, while DTensor still holds
+        # the lookup's mask
+        return torch.nn.functional.embedding(tokens, table).redistribute(
+            mesh, rows)
+    whole = (Replicate(),) * mesh.ndim
+    grad = tuple(Partial() if isinstance(p, Shard) else Replicate()
+                 for p in rows)
+    return local_map(lambda t, i: t[i], out_placements=list(rows),
+                     in_placements=(whole, rows),
+                     in_grad_placements=(grad, rows), device_mesh=mesh,
+                     redistribute_inputs=True)(table, tokens)
 
 
 def _stack(n: int, state: dict) -> dict:
@@ -457,6 +530,25 @@ def init_lm_cache(cfg: ArchConfig, batch: int, seq_len: int,
                             device)
 
 
+def cache_axes(cfg: ArchConfig) -> dict:
+    """The logical axes of :func:`init_lm_cache`'s tree (of
+    :func:`init_encdec_cache`'s for an enc-dec config), the JAX
+    package's: each layer's axes behind a leading ``"layers"``."""
+    if cfg.enc_dec:
+        kv = ("layers", "batch", "frames", "kv_heads", "head_dim")
+        return {"self": _prefix_layers(L.ATTN_CACHE_AXES), "cross_k": kv,
+                "cross_v": kv}
+    if cfg.family == "ssm":
+        return {"blocks": _prefix_layers({"mlstm": S.MLSTM_STATE_AXES,
+                                          "slstm": S.SLSTM_STATE_AXES}),
+                "pos": ()}
+    if cfg.family == "hybrid":
+        return {"mamba": _prefix_layers(S.MAMBA2_STATE_AXES),
+                "shared": _prefix_layers(L.ATTN_CACHE_AXES)}
+    return _prefix_layers(L.MLA_CACHE_AXES if cfg.use_mla
+                          else L.ATTN_CACHE_AXES)
+
+
 # ======================================================== whisper enc-dec
 def _enc_cfg(cfg: ArchConfig) -> ArchConfig:
     """Both stacks' attention: no RoPE, no sliding window."""
@@ -483,6 +575,8 @@ class EncDec(nn.Module):
     generator every weight is drawn in init order; without one the
     module is allocated uninitialised for ``load_state_dict``."""
 
+    AXES = {"embed": ("vocab", "embed")}
+
     def __init__(self, cfg: ArchConfig, device=None,
                  gen: torch.Generator | None = None):
         super().__init__()
@@ -504,6 +598,18 @@ class EncDec(nn.Module):
             cfg.n_frames, cfg.d_model).to(device), persistent=False)
         self.register_buffer("dec_pos", sinusoid_positions(
             cfg.n_frames * 32, cfg.d_model).to(device), persistent=False)
+
+
+    def param_tree(self, per_block: bool = False) -> dict:
+        """The JAX package's parameter pytree of this model
+        (``enc_blocks`` and ``dec_blocks`` stacked as
+        :meth:`LM.param_tree` stacks ``blocks``, ``embed``, ``enc_norm``,
+        ``dec_norm``)."""
+        return {"enc_blocks": _stacked_tree(self.enc_blocks, per_block),
+                "dec_blocks": _stacked_tree(self.dec_blocks, per_block),
+                "embed": self.embed,
+                "enc_norm": dict(self.enc_norm.named_parameters()),
+                "dec_norm": dict(self.dec_norm.named_parameters())}
 
 
 def init_encdec(gen: torch.Generator, cfg: ArchConfig) -> EncDec:

@@ -131,7 +131,10 @@ class Optimizer:
 
 
 def _zeros32(p: torch.Tensor) -> torch.Tensor:
-    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    """fp32 zeros of ``p``'s shape on its device (a DTensor's on its
+    mesh, with its placements)."""
+    return torch.zeros_like(p, dtype=torch.float32,
+                            memory_format=torch.contiguous_format)
 
 
 def sgd(lr: float | Schedule, momentum: float = 0.0) -> Optimizer:
@@ -209,3 +212,10 @@ def apply_updates(params, updates):
     return tree_map(lambda p, u: (p.float() + u).to(p.dtype), params,
                     updates)
 
+
+
+def opt_state_axes(opt_name: str, param_axes):
+    """Logical axes for the optimizer state (moments mirror params)."""
+    if opt_name == "sgd":
+        return {"step": ()}
+    return {"step": (), "m": param_axes, "v": param_axes}

@@ -26,8 +26,16 @@ error and a kernel that fails to build or launch are ``RuntimeError``\\ s
 too, and catching them would restart forever and hide the device's
 fault.
 
-The distribution pieces (``state_shardings``, ``batch_shardings``,
-``cache_shardings``) wait for the port of ``parallel/sharding.py``.
+On a device mesh (``build_model(cfg, mesh=...)``) the state's
+parameters, moments and the batches are DTensors: :func:`state_shardings`
+places them by the logical-axis rules (``fsdp``: parameters and moments
+over the data-parallel axes too; ``zero1``: the moments alone),
+:func:`shard_state` distributes a state drawn on every rank from one
+seed, and the train step runs unchanged on them — each gradient is
+reduced to its parameter's placements, the clipping norm is a full
+reduction over the DTensors, and each leaf's AdamW update runs in its
+moments' placements (the same fp32 arithmetic, on each rank's shard)
+before the parameter takes it back in its own.
 """
 
 from __future__ import annotations
@@ -45,15 +53,132 @@ from repro_torch.models.common import resolve_device
 from repro_torch.optim import compression as C
 from repro_torch.optim.optimizers import (Optimizer, adamw, apply_updates,
                                           clip_scale, cosine_schedule,
-                                          global_norm, tree_leaves,
-                                          tree_unflatten)
+                                          global_norm, opt_state_axes,
+                                          tree_leaves, tree_unflatten)
+from repro_torch.parallel.sharding import (NamedSharding, ShardingRules,
+                                           block_spec, distribute, is_dtensor)
+from repro_torch.parallel import sharding as Sh
+
+
+# ------------------------------------------------------------- shardings
+def _named(rules: ShardingRules, specs, axes):
+    """Specs (JAX layout) as :class:`NamedSharding` leaves; a block leaf's
+    (axes leading with ``"layers"``) on each block's tensor."""
+    def one(spec, ax):
+        if ax and ax[0] == "layers":
+            return NamedSharding(rules.mesh, block_spec(spec), stacked=True)
+        return NamedSharding(rules.mesh, spec)
+    return Sh.tree_map(one, specs, axes)
+
+
+def state_shardings(model: LMModel, rules: ShardingRules,
+                    opt_name: str = "adamw", fsdp: bool = False,
+                    zero1: bool = False) -> dict:
+    """Shardings for {params, opt}, in the JAX layout, from the stacked
+    shapes (``param_specs``' FSDP threshold and "largest dim" see the
+    reference's leaves):
+
+    - ``fsdp``: params AND moments sharded over the dp axes (ZeRO-3-style).
+    - ``zero1``: moments only — params stay TP-sharded/replicated, the
+      fp32 Adam m/v shard over (pod, data) on top (ZeRO-1)."""
+    p_shapes = model.abstract_params().param_tree()
+    p_axes = model.param_axes()
+    p_specs = rules.param_specs(p_axes, p_shapes, fsdp=fsdp)
+    o_axes = opt_state_axes(opt_name, p_axes)
+    o_specs = {"step": ()}
+    if opt_name != "sgd":
+        m_specs = rules.param_specs(p_axes, p_shapes, fsdp=fsdp or zero1
+                                    or bool(rules.fsdp_axes))
+        o_specs = {"step": (), "m": m_specs, "v": m_specs}
+    return {"params": _named(rules, p_specs, p_axes),
+            "opt": {k: _named(rules, o_specs[k], o_axes[k])
+                    for k in o_specs}}
+
+
+def batch_shardings(model: LMModel, rules: ShardingRules,
+                    specs: dict) -> dict:
+    return {k: rules.sharding_for(("batch",) + (None,) * (v.ndim - 1),
+                                  tuple(v.shape))
+            for k, v in specs.items()}
+
+
+def cache_shardings(model: LMModel, rules: ShardingRules, batch: int,
+                    seq_len: int) -> dict:
+    """Shardings of the contiguous cache's tensors (its ``pos`` stays on
+    the host); a stacked cache tensor is one tensor here, as in the
+    reference."""
+    shapes, axes = model.abstract_cache(batch, seq_len)
+    specs = rules.tree_specs(axes, Sh.tree_map(
+        lambda t: tuple(getattr(t, "shape", ())), shapes,
+        is_leaf=lambda t: not isinstance(t, dict)))
+    return Sh.tree_map(lambda sp: NamedSharding(rules.mesh, sp), specs)
+
+
+def place_cache(cache: dict, shardings: dict) -> dict:
+    """A contiguous cache made whole on every rank (or on the ``meta``
+    device) as DTensors placed by ``shardings``
+    (:func:`cache_shardings`); ``pos`` stays on the host."""
+    return {k: place_cache(v, shardings[k]) if isinstance(v, dict)
+            else v if k == "pos"
+            else distribute(v, shardings[k].mesh, shardings[k].placements)
+            for k, v in cache.items()}
+
+
+def _pairs(tree, shardings):
+    """(leaf, sharding) pairs of a per-block tree and its JAX-layout
+    shardings: a stacked sharding serves each block's tensor."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _pairs(tree[k], shardings[k])
+    elif isinstance(tree, list):
+        for t in tree:
+            yield t, shardings
+    elif tree is not None:
+        yield tree, shardings
+
+
+@torch.no_grad()
+def shard_params(params, shardings: dict):
+    """Replace every parameter of the module ``params`` by a DTensor
+    parameter placed by ``shardings`` (``state_shardings(...)["params"]``):
+    this rank's shard of the full tensor, no collective."""
+    new = {id(t): distribute(t, s.mesh, s.placements) for t, s in
+           _pairs(params.param_tree(per_block=True), shardings)}
+    for mod in params.modules():
+        for name, t in list(mod._parameters.items()):
+            if id(t) in new:
+                mod._parameters[name] = torch.nn.Parameter(
+                    new[id(t)], requires_grad=False)
+    return params
+
+
+def place(tree, shardings):
+    """A per-block tree of full tensors (moments, residuals) as DTensors
+    placed by ``shardings`` (JAX layout)."""
+    if isinstance(tree, dict):
+        return {k: place(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [place(t, shardings) for t in tree]
+    return distribute(tree, shardings.mesh, shardings.placements)
+
+
+def shard_state(state: dict, shardings: dict) -> dict:
+    """A train state drawn whole on every rank (one seed) as DTensors:
+    parameters and moments placed by ``shardings``
+    (:func:`state_shardings`)."""
+    shard_params(state["params"], shardings["params"])
+    opt = state["opt"]
+    state["opt"] = dict(opt, **{k: place(opt[k], shardings["opt"][k])
+                                for k in opt if k != "step"})
+    if "residuals" in state:
+        raise NotImplementedError("gradient compression on a mesh")
+    return state
 
 
 # ------------------------------------------------------------ train step
 def make_train_step(model: LMModel, optimizer: Optimizer,
                     *, grad_compression: bool = False,
                     microbatches: int = 1,
-                    unroll_microbatches: bool = False,
                     clip_norm: float = 1.0) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
@@ -64,10 +189,7 @@ def make_train_step(model: LMModel, optimizer: Optimizer,
     clip scales each leaf as it reaches the optimizer), so the step
     holds no second copy of the gradients or of the parameters.  The
     state's parameters, moments and residuals are updated in place; the
-    returned state is ``state``.  ``unroll_microbatches`` changes
-    nothing here: the microbatches are a Python loop either way (in the
-    reference it unrolls a ``lax.scan`` for the dry-run's cost probes)."""
-    del unroll_microbatches
+    returned state is ``state``."""
     ctx = model.ctx()
 
     def compute_grads(params, leaves, batch):
@@ -103,6 +225,13 @@ def make_train_step(model: LMModel, optimizer: Optimizer,
         for p in leaves:
             p.requires_grad_(True)
         loss, metrics, grads = compute_grads(params, leaves, batch)
+        if is_dtensor(leaves[0]):
+            if grad_compression:
+                raise NotImplementedError("gradient compression on a mesh")
+            # partial sums over the batch shards reduced, to each
+            # parameter's placements (all-reduce or reduce-scatter)
+            grads = [g.redistribute(p.device_mesh, p.placements)
+                     for g, p in zip(grads, leaves)]
         # the old residuals and moments are dropped from ``state`` before
         # their leaves are replaced: the lists hold the only references,
         # so each old leaf is freed as its new one is made
@@ -125,22 +254,37 @@ def make_train_step(model: LMModel, optimizer: Optimizer,
             for i, p in enumerate(leaves):
                 g, grads[i] = grads[i], None
                 g = (g.float() * scale).to(g.dtype)
-                u, new = optimizer.update(
-                    g, {"step": step, **{k: t[i] for k, t in trees.items()}},
-                    p)
+                moments = {k: t[i] for k, t in trees.items()}
+                pm = p
+                if is_dtensor(p) and moments:
+                    # the update in the moments' placements (ZeRO-1:
+                    # each rank's shard), the parameter gathered back
+                    mpl = next(iter(moments.values())).placements
+                    g = g.redistribute(p.device_mesh, mpl)
+                    pm = p.redistribute(p.device_mesh, mpl)
+                u, new = optimizer.update(g, {"step": step, **moments}, pm)
                 del g
                 for k, t in trees.items():
                     t[i] = new[k]
-                p.copy_(apply_updates(p, u))
-                del u, new
+                upd = apply_updates(pm, u)
+                if pm is not p:
+                    upd = upd.redistribute(p.device_mesh, p.placements)
+                p.copy_(upd)
+                del u, new, upd, pm
             state["opt"] = {"step": step + 1,
                             **{k: tree_unflatten(tree, t)
                                for k, t in trees.items()}}
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics.update(loss=loss.detach(), grad_norm=gnorm)
+        metrics = {k: _whole(v.detach()) for k, v in metrics.items()}
+        metrics.update(loss=_whole(loss.detach()), grad_norm=_whole(gnorm))
         return state, metrics
 
     return train_step
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A metric as one value: a DTensor's partial or sharded parts
+    combined (every rank gets it)."""
+    return t.full_tensor() if is_dtensor(t) else t
 
 
 def make_decode_step(model: LMModel) -> Callable:
@@ -150,8 +294,12 @@ def make_decode_step(model: LMModel) -> Callable:
 
 
 def make_prefill_step(model: LMModel, cache_len: int) -> Callable:
-    def prefill_step(params, batch):
-        cache = model.init_cache(batch["tokens"].shape[0], cache_len)
+    """``prefill_step(params, batch, cache=None)``: a fresh cache of
+    ``cache_len`` slots unless one is given (on a mesh, a placed one:
+    :func:`cache_shardings`)."""
+    def prefill_step(params, batch, cache=None):
+        if cache is None:
+            cache = model.init_cache(batch["tokens"].shape[0], cache_len)
         return model.prefill(params, batch, cache=cache)
     return prefill_step
 
@@ -194,6 +342,8 @@ class LoopReport:
     straggler_events: int = 0
     losses: list = dataclasses.field(default_factory=list)
     final_loss: float = float("nan")
+    # each step's seconds: the step and its loss read back, no checkpoint
+    step_s: list = dataclasses.field(default_factory=list)
 
 
 def train_loop(model: LMModel, *, steps: int, batcher,
@@ -202,23 +352,29 @@ def train_loop(model: LMModel, *, steps: int, batcher,
                injector: FailureInjector | None = None,
                straggler_factor: float = 3.0,
                grad_compression: bool = False,
+               shardings: dict | None = None,
                log: Callable[[str], None] = lambda s: None) -> LoopReport:
     """Fault-tolerant loop: restores from the newest committed checkpoint
     (or initialises from ``seed`` and snapshots that as step -1),
     checkpoints every ``ckpt_every`` steps and at the last, and on a
     :class:`NodeFailure` restarts from the last checkpoint — the
-    deterministic data pipeline replays the same batches."""
+    deterministic data pipeline replays the same batches.  With
+    ``shardings`` (:func:`state_shardings`, the model on their mesh) the
+    state is sharded, and a restore reads each rank's shards."""
     resolve_device(model.device)     # a CUDA model needs a card
     optimizer = optimizer or adamw(cosine_schedule(3e-4, 10, steps))
     train_step = make_train_step(model, optimizer,
                                  grad_compression=grad_compression)
 
     def load_or_init():
-        tree, meta = ckpt.restore()
+        tree, meta = ckpt.restore(shardings=shardings)
         if tree is None:
-            return init_train_state(model, optimizer, seed,
-                                    grad_compression=grad_compression), 0
-        return state_from_jax(tree, model), meta["step"] + 1
+            state = init_train_state(model, optimizer, seed,
+                                     grad_compression=grad_compression)
+            if shardings is not None:
+                state = shard_state(state, shardings)
+            return state, 0
+        return state_from_jax(tree, model, shardings), meta["step"] + 1
 
     report = LoopReport()
     state, start = load_or_init()
@@ -226,7 +382,7 @@ def train_loop(model: LMModel, *, steps: int, batcher,
         ckpt.save(-1, state_to_jax(state))  # step "-1" = init snapshot
         ckpt.wait()
     step = start
-    durations: list[float] = []
+    durations = report.step_s
     while step < steps:
         try:
             if injector is not None:

@@ -7,7 +7,10 @@ space with baseline accuracy + resource metrics, as the JAX package's
 ``torch.Generator`` seeded with ``seed`` on the task's ``device`` (CUDA
 unless the caller passes ``device="cpu"``).  With ``train_en`` a bench
 model trains with ``train_classifier`` and an LM arch fine-tunes with
-``lm_finetune`` on the JAX package's synthetic token batches.
+``lm_finetune`` on the JAX package's synthetic token batches.  With
+``device="meta"`` an LM arch's model is built on the ``meta`` device and
+neither trained nor evaluated: the dry-run flow's MODEL-GEN, which needs
+only its shapes.
 """
 
 from __future__ import annotations
@@ -48,13 +51,19 @@ class ModelGen(LambdaTask):
         name = self.param(meta, "model")
         seed = self.param(meta, "seed")
         device = resolve_device(self.param(meta, "device"))
-        gen = torch.Generator(device=device)
-        gen.manual_seed(int(seed))
-        if name in BENCH_MODELS:
+        gen = None
+        if device.type != "meta":
+            gen = torch.Generator(device=device)
+            gen.manual_seed(int(seed))
+        if device.type == "meta":         # the dry run's: shapes only
+            handle = self._abstract_lm(meta, name)
+            acc = None
+        elif name in BENCH_MODELS:
             handle = self._build_bench(meta, name, gen)
+            acc = handle.evaluate()
         else:
             handle = self._build_lm(meta, name, device)
-        acc = handle.evaluate()
+            acc = handle.evaluate()
         metrics = {"accuracy": acc, **handle.summary_metrics()}
         out = meta.add_model(name, LEVEL_DNN, handle, metrics=metrics)
         meta.record("model_gen", model=name, accuracy=acc)
@@ -84,6 +93,17 @@ class ModelGen(LambdaTask):
             meta.record("model_gen.train", model=name,
                         final_loss=losses[-1] if losses else None)
         return handle
+
+    def _abstract_lm(self, meta, arch) -> DNNHandle:
+        """``device="meta"``: an LM arch's model on the ``meta`` device —
+        no allocation, no training, no evaluation (the dry-run flow reads
+        its config; ``core/strategies.py::dryrun_flow``)."""
+        from repro_torch.configs.registry import get_config
+        model = build_model(get_config(arch, smoke=self.param(meta, "smoke")),
+                            device="meta")
+        return DNNHandle(kind="lm", name=arch,
+                         params=model.abstract_params(), model=model,
+                         policy=model.policy)
 
     def _build_lm(self, meta, arch, device) -> DNNHandle:
         from repro_torch.configs.registry import get_config

@@ -159,10 +159,28 @@ def test_reference_bf16_restore_fault_is_read_by_the_port(tmp_path):
 
 
 def test_restore_onto_a_mesh_waits(tmp_path):
-    ckpt = CheckpointManager(str(tmp_path), async_save=False)
-    ckpt.save(0, _state())
-    with pytest.raises(NotImplementedError, match="distribution"):
-        ckpt.restore(shardings={"params/w": None})
+    """Restoring onto a mesh no longer waits: on a one-rank gloo mesh a
+    leaf named in ``shardings`` comes back as a DTensor holding the
+    stored bits (the multi-rank elastic restore:
+    tests/test_torch_sharding.py)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.sharding import NamedSharding
+    ckpt = CheckpointManager(str(tmp_path / "ckpt"), async_save=False)
+    state = _state(2.5)
+    ckpt.save(0, state)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1, "cpu")
+        restored, _ = ckpt.restore(
+            shardings={"params/w": NamedSharding(mesh, ("data",))})
+        w = restored["params"]["w"]
+        assert isinstance(w, DTensor)
+        assert torch.equal(w.to_local(), torch.as_tensor(state["params"]["w"]))
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("arch", ["starcoder2_3b", "zamba2_2p7b"])

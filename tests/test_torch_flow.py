@@ -476,13 +476,14 @@ def test_combined_strategy_and_untrained_model_gen():
         model_params={"device": "cpu"}), {"ModelGen.train_en": False})
     assert meta.get("tune.result") == {"configs": {}, "search_steps": 0}
     assert meta.trace("model_gen.train") == []
-    # MODEL-GEN trains by default; SHARDING-SEARCH is not ported
+    # MODEL-GEN trains by default; SHARDING-SEARCH ("H") chains like
+    # the other O-tasks
     trained = MetaModel({"ModelGen.train_samples": 256,
                          "ModelGen.train_epochs": 1})
     ModelGen(model="jet_dnn", device="cpu").run(trained, [])
     assert len(trained.trace("model_gen.train")) == 1
-    with pytest.raises(NotImplementedError, match="SHARDING-SEARCH"):
-        combined_strategy("jet_dnn", "SPH")
+    assert [t.name for t in combined_strategy("jet_dnn", "SPH").tasks] == [
+        "ModelGen", "Scaling", "Pruning", "ShardingSearch"]
 
 
 # ---------------------------------------------------- bench models / handle

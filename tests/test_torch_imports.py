@@ -29,6 +29,11 @@ assert "repro_torch.models.ssm" in names
 assert "repro_torch.launch.whisper_serve" in names
 assert "repro_torch.runtime.train_loop" in names
 assert "repro_torch.launch.train" in names
+for name in ("parallel.sharding", "launch.mesh", "launch.roofline",
+             "launch.dryrun", "tasks.lower", "tasks.sharding_search"):
+    assert "repro_torch." + name in names, name
+import torch.distributed as dist
+assert not dist.is_initialized()   # importing touches no process group
 print(len(names))
 """
 
@@ -59,6 +64,8 @@ def test_sources_name_no_jax_or_library_kernel(needle):
                if f.suffix in (".py", ".cu", ".cuh")]
     assert PORT / "models" / "ssm.py" in scanned
     assert PORT / "launch" / "whisper_serve.py" in scanned
+    assert PORT / "launch" / "dryrun.py" in scanned
+    assert PORT / "parallel" / "sharding.py" in scanned
     hits = [str(f.relative_to(SRC)) for f in scanned
             if needle in f.read_text()]
     assert not hits, hits

@@ -291,8 +291,12 @@ def test_combined_strategy_orders_and_refusals():
         ["ModelGen", "Scaling", "Pruning"]
     assert names(tstrat.combined_strategy("jet_dnn", "QPSTV")) == \
         ["ModelGen", "Quantization", "Pruning", "Scaling", "Tune", "Serve"]
-    assert sorted(tstrat.O_TASKS) == ["P", "Q", "S", "T", "V"]
-    for bad in (lambda: tstrat.combined_strategy("jet_dnn", "PH"),
-                lambda: tstrat.dryrun_flow("qwen2-7b")):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            bad()
+    assert sorted(tstrat.O_TASKS) == ["H", "P", "Q", "S", "T", "V"]
+    # SHARDING-SEARCH and the dry-run flow are ported: the same chains
+    assert names(tstrat.combined_strategy("jet_dnn", "PH")) == \
+        names(jstrat.combined_strategy("jet_dnn", "PH"))
+    assert names(tstrat.dryrun_flow("qwen2-7b")) == \
+        names(jstrat.dryrun_flow("qwen2-7b")) == \
+        ["ModelGen", "Lower", "Compile", "Roofline"]
+    assert names(tstrat.dryrun_flow("qwen2-7b", o_tasks="H")) == \
+        names(jstrat.dryrun_flow("qwen2-7b", o_tasks="H"))

@@ -144,7 +144,7 @@ def test_token_source_equals_jax(arch):
                                       b["labels"][:, :-1])
 
 
-def test_batcher_prefetch_matches_sync_and_refuses_rules():
+def test_batcher_prefetch_matches_sync_and_refuses_rules(tmp_path):
     s = tpipe.TokenSource(256, batch=2, seq_len=8)
     sync = tpipe.ShardedBatcher(s, None, prefetch=False, device="cpu")
     pre = tpipe.ShardedBatcher(s, None, prefetch=True, device="cpu")
@@ -154,8 +154,19 @@ def test_batcher_prefetch_matches_sync_and_refuses_rules():
         assert torch.equal(a["tokens"], b["tokens"])
         np.testing.assert_array_equal(a["labels"].numpy(),
                                       s.batch_at(step)["labels"])
-    with pytest.raises(NotImplementedError, match="distribution"):
-        tpipe.ShardedBatcher(s, rules=object(), device="cpu")
+    # with rules (one-rank gloo mesh) a batch is a DTensor of the same rows
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.sharding import ShardingRules
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        rules = ShardingRules.default(make_host_mesh(1, 1, "cpu"))
+        placed = tpipe.ShardedBatcher(s, rules, device="cpu").get(2)
+        assert torch.equal(placed["tokens"].full_tensor(),
+                           sync.get(2)["tokens"])
+    finally:
+        dist.destroy_process_group()
 
 
 # ------------------------------------------------------------ train step
@@ -412,9 +423,10 @@ def test_launch_train_main_restarts_once(tmp_path, capsys):
     assert CheckpointManager(str(tmp_path)).committed_steps() == [-1, 2, 5]
 
 
-def test_mesh_clamps_as_jax_and_a_mesh_waits(tmp_path, monkeypatch):
+def test_mesh_clamps_as_jax_and_a_mesh_waits(tmp_path, capsys):
     """--mesh is clamped to the devices there are, as the reference's
-    make_host_mesh clamps it; a mesh larger than 1 x 1 raises."""
+    make_host_mesh clamps it; under a process group the clamped mesh
+    trains (it no longer waits)."""
     from repro.launch.mesh import make_host_mesh
     n = len(jax.devices())
     for data, model in [(1, 1), (2, 4), (4, 1), (3, 3)]:
@@ -422,7 +434,16 @@ def test_mesh_clamps_as_jax_and_a_mesh_waits(tmp_path, monkeypatch):
             make_host_mesh(data, model).devices.shape
     assert tlaunch.host_mesh_shape(2, 4, 4) == (2, 2)
     assert tlaunch.host_mesh_shape(4, 1, 2) == (2, 1)
-    monkeypatch.setattr(tlaunch, "host_mesh_shape", lambda d, m, n: (d, m))
-    with pytest.raises(NotImplementedError, match="distribution"):
+    # a mesh no longer waits: --mesh 2x1 on a one-rank world clamps to
+    # 1 x 1 and trains on it (the 4-rank run: tests/test_torch_sharding.py)
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
         tlaunch.main(["--arch", "qwen2_7b", "--smoke", "--device", "cpu",
-                      "--mesh", "2x1", "--ckpt-dir", str(tmp_path)])
+                      "--mesh", "2x1", "--steps", "2",
+                      "--ckpt-dir", str(tmp_path / "ckpt")])
+    finally:
+        dist.destroy_process_group()
+    out = capsys.readouterr().out
+    assert json.loads(out[out.index("{"):])["mesh"] == [1, 1]
