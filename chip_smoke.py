@@ -231,6 +231,33 @@ Phases, each printing one JSON line or more:
                prediction, and the step's ms.  Runs before phase 6, whose
                rows report its launch counts.
 
+17. ep       — expert parallelism: (a) granite-moe-1b-a400m whole (24
+               layers, 32 experts top-8, fp32 weights from seed 0) on a
+               real one-rank NCCL mesh (``_moe_ep`` at tp = 1): a prefill
+               of 8 x 128 and 8 greedy steps through ``make_prefill_step``
+               / ``make_decode_step``, tokens and last logits bit-equal
+               to the unsharded model routed through the plain function
+               at (1, 1) (``layers.plain_ep_routing``), flash_decode 24 x
+               8 launches all "tc", no other kernel, no MoE host read;
+               then ``launch/train.py --mesh 1x1`` on 2 layers, 3 steps,
+               its checkpoint and losses bit-equal to the unsharded
+               trainer with the same routing; (b) two gloo processes
+               sharing the card (NCCL refuses two ranks on one device),
+               mesh 1 x 2, 16 and 80 experts a rank: gloo's collectives on
+               CUDA tensors probed, then granite whole (prefill 8 x 128
+               and 8 steps: the all-to-all body; 1 x 128 and 4 steps at
+               batch 1: the replicated-routing body) and DeepSeek-V2 cut
+               to 2 layers (bf16, 4 x 64 and 4 steps, bf16 and int8-mlp),
+               every expert-parallel layer's output bit-equal to the plain
+               function at (1, 2) on its input, rank 0's last logits
+               within 5 % of the largest of the unsharded plain-EP
+               model's fed the same tokens, quant_matmul 3 x 2 x 5 a
+               rank under int8-mlp, all "tc", each rank's peak memory;
+               (c) the dry run on the host, rank 0 of the placeholder
+               16 x 16: granite train_4k (the all-to-alls counted) and
+               decode_32k, DeepSeek-V2 decode_32k under FSDP.  Runs
+               before phase 6, whose rows report its launch counts.
+
 Then one ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line, and the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises and
 the script exits non-zero.  Without a CUDA device, or without the
@@ -244,12 +271,13 @@ kernels and host ops — and over 16 contiguous decode steps under each
 policy) runs only when asked.
 
 Usage: ``python3 chip_smoke.py [--phases
-1,2,3,4,5,6,8,9,10,11,12,13,14,15,16[,7]] [--src DIR]``; ``--phases 1,2,9,10``
+1,2,3,4,5,6,8,9,10,11,12,13,14,15,16,17[,7]] [--src DIR]``; ``--phases 1,2,9,10``
 builds the kernels and drives the SERVE and durability paths alone,
 ``--phases 1,2,3,11`` the design flow with training, ``--phases 1,2,12``
 the MoE family, ``--phases 1,2,3,13`` the SSM and hybrid families,
 ``--phases 1,2,3,14`` the encoder-decoder family, ``--phases 1,2,3,15``
-the trainer, ``--phases 1,2,16`` distribution.
+the trainer, ``--phases 1,2,16`` distribution, ``--phases 1,2,17``
+expert parallelism.
 ``--src`` drives the ``repro_torch`` under another tree (e.g. the parent
 commit unpacked beside this one) with this script's phases; with
 ``--phases 1,6`` that times both commits' kernels with the same rows in one
@@ -3611,7 +3639,7 @@ def _one_rank_world():
     dist.init_process_group("nccl")
 
 
-def _plain_train(int8: bool) -> tuple[list, dict]:
+def _plain_train(int8: bool, arch: str = TRAIN_ARCH) -> tuple[list, dict]:
     """Phase 15's unsharded trainer as ``launch/train.main`` runs it
     (``train_loop``'s seed 0, ``TokenSource`` batches, AdamW on the
     cosine schedule), :data:`DIST_STEPS` steps in memory — no
@@ -3627,7 +3655,7 @@ def _plain_train(int8: bool) -> tuple[list, dict]:
     from repro_torch.optim.optimizers import adamw, cosine_schedule
     from repro_torch.runtime.train_loop import (init_train_state,
                                                 make_train_step)
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
     model = build_model(cfg, serve_policy(True) if int8 else None,
                         device="cuda")
     opt = adamw(cosine_schedule(3e-4, 10, DIST_STEPS))
@@ -3864,6 +3892,451 @@ def phase_dist() -> dict:
     emit({"phase": "dist", "part": "c", "arch": DIST_ARCH, **ex,
           "wall_s": time.perf_counter() - t1})
     emit({"phase": "dist_done", "launches": launches,
+          "wall_s": time.perf_counter() - t0})
+    return launches
+
+
+# ---------------------------------------------------------------- phase 17
+EP_ARCH = "granite_moe_1b_a400m"
+EP_DECODE = dict(batch=8, prompt_len=128, steps=8)   # (a), (b): ep_fn
+EP_SMALL = dict(batch=1, prompt_len=128, steps=4)    # (b): ep_small_fn
+EP_DEEPSEEK_LAYERS = 2            # of 60, as phase 12
+EP_DEEPSEEK = dict(batch=4, prompt_len=64, steps=4)
+EP_TRAIN_LAYERS = 2               # (a)'s trainer: granite 24 -> 2 layers
+# (b): rank 0's last logits against the unsharded model routed through
+# the plain function at (1, 2), as a share of the largest |logit|: the
+# mesh splits the attention's heads and products over ``model`` and
+# runs the plain attention there, so only the expert-parallel layers
+# are bit-equal (gated layer by layer); bf16 activations round the rest
+EP_LOGITS_TOL = 0.05
+EP_WORKER_TIMEOUT = 900
+
+
+def _ep_decode(model, params, prompts, steps, mesh=None, force=None):
+    """A prefill and ``steps`` greedy steps through ``make_prefill_step``
+    / ``make_decode_step`` (on ``mesh``: the cache placed by the rules,
+    inputs distributed, logits gathered).  ``force``: feed these tokens
+    (B, steps + 1) instead of the argmax.  Returns (tokens, the last
+    step's logits on the host, each step's ms)."""
+    import torch
+    from repro_torch.parallel.sharding import (ShardingRules,
+                                               batch_placements, distribute)
+    from repro_torch.runtime import train_loop as TL
+    b, s = prompts.shape
+    cache_len = s + steps + 1
+    cache = model.init_cache(b, cache_len)
+    put = whole = (lambda t: t)
+    if mesh is not None:
+        rules = ShardingRules.default(mesh)
+        cache = TL.place_cache(cache, TL.cache_shardings(model, rules, b,
+                                                         cache_len))
+
+        def put(t):
+            return distribute(t, mesh, batch_placements(mesh))
+
+        def whole(t):
+            return t.full_tensor()
+    logits, cache = TL.make_prefill_step(model, cache_len)(
+        params, {"tokens": put(prompts.cuda())}, cache)
+    step = TL.make_decode_step(model)
+    lg = whole(logits)[:, -1]
+    tok = lg.argmax(-1, keepdim=True).int()
+    toks, ms = [tok], []
+    for i in range(steps):
+        if force is not None:
+            tok = force[:, i:i + 1].cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = step(params, cache, put(tok))
+        lg = whole(logits)[:, -1]
+        tok = lg.argmax(-1, keepdim=True).int()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        toks.append(tok)
+    return torch.cat(toks, 1).cpu(), lg.float().cpu(), ms
+
+
+def _ep_prompts(cfg, c, seed: int = 7):
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (c["batch"], c["prompt_len"]),
+                         generator=gen)
+
+
+def _ep_one_rank() -> tuple[dict, dict]:
+    """(a) granite-moe-1b-a400m whole on the one-rank NCCL mesh: decode
+    against the unsharded model routed through the plain function at
+    (1, 1), bit for bit, with its launches and host reads; then
+    ``launch/train.py --mesh 1x1`` on 2 layers against the unsharded
+    trainer with the same routing."""
+    import torch
+    from repro_torch.configs import granite_moe_1b_a400m
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models.api import build_model
+    from repro_torch.parallel.sharding import ShardingRules
+    from repro_torch.runtime import train_loop as TL
+    c = EP_DECODE
+    cfg = get_config(EP_ARCH)
+    prompts = _ep_prompts(cfg, c)
+    plain = build_model(cfg, device="cuda")
+    with L.plain_ep_routing(1, 1):
+        ref_toks, ref_lg, plain_ms = _ep_decode(plain, plain.init(0),
+                                                prompts, c["steps"])
+    torch.cuda.empty_cache()
+    mesh = make_host_mesh(1, 1, "cuda")
+    model = build_model(cfg, device="cuda", mesh=mesh)
+    params = TL.shard_params(model.init(0), TL.state_shardings(
+        model, ShardingRules.default(mesh), "sgd")["params"])
+    syncs = L.moe_host_syncs
+    _zero_counts()
+    toks, lg, ms = _ep_decode(model, params, prompts, c["steps"], mesh)
+    counts, tc = _read_counts(), _read_tc_counts()
+    host_reads = L.moe_host_syncs - syncs
+    del params, model
+    torch.cuda.empty_cache()
+    want = c["steps"] * cfg.n_layers
+    if not (torch.equal(toks, ref_toks) and torch.equal(lg, ref_lg)):
+        raise AssertionError(f"phase 17 (a): the 1 x 1 mesh differs from "
+                             f"plain EP: {int((toks != ref_toks).sum())} "
+                             f"tokens, logits {float((lg - ref_lg).abs().max())}")
+    if (counts["flash_decode"] != want or tc["flash_decode"] != want
+            or any(v for k, v in counts.items() if k != "flash_decode")
+            or host_reads):
+        raise AssertionError(f"phase 17 (a): launches {counts}, tc {tc}, "
+                             f"MoE host reads {host_reads}")
+    decode = {"bit_equal": True, "flash_decode": want,
+              "flash_decode_tc": tc["flash_decode"], "moe_host_reads": 0,
+              "mesh_step_ms": ms, "plain_step_ms": plain_ms, **c}
+    # the trainer, 2 layers, 3 steps: no kernel on its path
+    import shutil
+    import tempfile
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ep_"))
+    args = ["--arch", EP_ARCH, "--batch", "8", "--seq-len", "128",
+            "--ckpt-every", "3", "--steps", str(DIST_STEPS)]
+    try:
+        with _cut_config(granite_moe_1b_a400m, n_layers=EP_TRAIN_LAYERS):
+            with L.plain_ep_routing(1, 1):
+                p_losses, p_kept, p_ms = _plain_train(False, EP_ARCH)
+            _zero_counts()
+            run, kept = _launch_train(args + ["--mesh", "1x1", "--ckpt-dir",
+                                              str(root)],
+                                      keep_step=DIST_STEPS - 1)
+            counts = _read_counts()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    eq = _snapshots_equal(p_kept, kept)
+    losses = {"first_loss": (p_losses[0], run["first_loss"]),
+              "final_loss": (p_losses[-1], run["final_loss"])}
+    if not eq["bit_equal"] or any(a != b for a, b in losses.values()):
+        raise AssertionError(f"phase 17 (a): the 1 x 1 trainer differs from "
+                             f"plain EP: {eq}, losses {losses}")
+    if any(counts.values()) or run["steps_run"] != DIST_STEPS:
+        raise AssertionError(f"phase 17 (a): trainer {run}, {counts}")
+    train = {"bit_equal": True, "losses": losses, "layers": EP_TRAIN_LAYERS,
+             "mesh_step_ms": run["step_ms"], "plain_step_ms": p_ms}
+    return {"decode": decode, "train": train}, {"flash_decode": want}
+
+
+def _gloo_cuda_probe(rank: int) -> dict:
+    """Each collective of (b)'s path on CUDA tensors over the gloo group,
+    its result checked: all-reduce (sum, max), all-gather, all-to-all."""
+    import torch
+    import torch.distributed as dist
+    x = torch.arange(4, dtype=torch.float32, device="cuda") + 4 * rank
+    out = {}
+    s = x.clone()
+    dist.all_reduce(s)
+    out["all_reduce_sum"] = torch.equal(s.cpu(), torch.arange(4.) * 2 + 4)
+    m = x.clone()
+    dist.all_reduce(m, op=dist.ReduceOp.MAX)
+    out["all_reduce_max"] = torch.equal(m.cpu(), torch.arange(4.) + 4)
+    g = torch.empty(8, device="cuda")
+    dist.all_gather_into_tensor(g, x)
+    out["all_gather"] = torch.equal(g.cpu(), torch.arange(8.))
+    a = torch.empty(4, device="cuda")
+    dist.all_to_all_single(a, x)
+    want = torch.tensor([0., 1., 4., 5.]) + 2 * rank
+    out["all_to_all"] = torch.equal(a.cpu(), want)
+    if not all(out.values()):
+        raise AssertionError(f"phase 17 (b): gloo on CUDA tensors: {out}")
+    return out
+
+
+def _c10d_all_gather():
+    """Route ``funcol.all_gather_tensor`` — DTensor's all-gathers and
+    ``layers._GatherRows`` — through c10d's ``all_gather_into_tensor``
+    in this process.  Under gloo on CUDA tensors the functional
+    all-gather of torch 2.11 crashes the process (SIGSEGV in its wait;
+    probed on the card for fp32 and bf16), while c10d's, the functional
+    all-reduce and all-to-all work; on NCCL across cards the functional
+    one is what runs.  The values are the same: the gather moves bits."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    def all_gather_tensor(self, gather_dim, group, tag=""):
+        pg = _resolve_process_group(funcol._resolve_group_name(group, tag))
+        n = dist.get_world_size(pg)
+        t = self.contiguous()
+        out = t.new_empty((n * t.shape[0], *t.shape[1:]))
+        dist.all_gather_into_tensor(out, t, group=pg)
+        if gather_dim:
+            out = torch.cat(out.chunk(n), dim=gather_dim)
+        return out
+    funcol.all_gather_tensor = all_gather_tensor
+
+
+def _ep_capture():
+    """Wrap ``layers._moe_ep``: every call's input and output, whole, in
+    order (both ranks gather them; rank 0 compares)."""
+    from repro_torch.models import layers as L
+    orig, calls = L._moe_ep, []
+
+    def wrapped(ctx, cfg, p, x):
+        y = orig(ctx, cfg, p, x)
+        calls.append((p, ctx.decode, x.full_tensor(), y.full_tensor()))
+        return y
+    L._moe_ep = wrapped
+    return orig, calls
+
+
+def _ep_layers_bit_equal(cfg, model, mesh_params, plain_params, calls
+                         ) -> int:
+    """Rank 0: each captured expert-parallel layer against the plain
+    function at (1, 2) on its input, bit for bit."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models.common import Ctx
+    index = {id(b.moe): i for i, b in enumerate(mesh_params.blocks)}
+    routed = cfg.replace(n_shared_experts=0)
+    for p, decode, x, y in calls:
+        i = index[id(p)]
+        want = L.moe_ffn_ep_plain(Ctx(policy=model.policy, decode=decode),
+                                  routed, plain_params.blocks[i].moe, x,
+                                  1, 2)
+        if not torch.equal(y, want):
+            raise AssertionError(
+                f"phase 17 (b) {cfg.name}: layer {i} (decode {decode}, x "
+                f"{tuple(x.shape)}) differs from plain EP by "
+                f"{float((y.float() - want.float()).abs().max())}")
+    return len(calls)
+
+
+def _ep_worker_run(rank: int, d: Path) -> dict:
+    """(b) one of two gloo ranks on the one card, mesh 1 x 2."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import serve_policy
+    from repro_torch.models import layers as L
+    from repro_torch.models.api import build_model
+    from repro_torch.parallel.sharding import ShardingRules
+    from repro_torch.runtime import train_loop as TL
+    out = {"probe": _gloo_cuda_probe(rank)}
+    _c10d_all_gather()
+    mesh = make_host_mesh(1, 2, "cuda")
+    rules = ShardingRules.default(mesh)
+    orig, calls = _ep_capture()
+    try:
+        for arch in (EP_ARCH, "deepseek_v2_236b"):
+            cfg = get_config(arch)
+            pols = ("bf16",)
+            runs = [(EP_DECODE, "ep_fn"), (EP_SMALL, "ep_small_fn")]
+            if cfg.use_mla:
+                cfg = cfg.replace(n_layers=EP_DEEPSEEK_LAYERS)
+                pols = ("bf16", "int8-mlp")
+                runs = [(EP_DEEPSEEK, "ep_fn")]
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            base = build_model(cfg, device="cuda", mesh=mesh)
+            params = TL.shard_params(base.init(0), TL.state_shardings(
+                base, rules, "sgd")["params"])
+            torch.cuda.synchronize()
+            rec = {"init_s": time.perf_counter() - t0, "runs": {}}
+            plain = plain_params = None
+            if rank == 0:
+                plain = build_model(cfg, device="cuda")
+                plain_params = plain.init(0)
+            for pol in pols:
+                policy = serve_policy(pol == "int8-mlp")
+                model = build_model(cfg, policy, device="cuda", mesh=mesh)
+                if plain is not None:
+                    plain = build_model(cfg, policy, device="cuda")
+                for c, body in runs:
+                    prompts = _ep_prompts(cfg, c)
+                    calls.clear()
+                    _zero_counts()
+                    toks, lg, ms = _ep_decode(model, params, prompts,
+                                              c["steps"], mesh)
+                    counts, tc = _read_counts(), _read_tc_counts()
+                    forwards = 1 + c["steps"]
+                    want = _mlp_linears(cfg) * forwards \
+                        if pol == "int8-mlp" else 0
+                    if (counts["quant_matmul"] != want
+                            or tc["quant_matmul"] != want
+                            or any(v for k, v in counts.items()
+                                   if k != "quant_matmul")):
+                        raise AssertionError(
+                            f"phase 17 (b) {arch} {pol}: launches {counts}, "
+                            f"tc {tc}, want quant_matmul {want}")
+                    r = {"step_ms": ms, "body": body, "launches": counts,
+                         "quant_matmul_tc": tc["quant_matmul"],
+                         "ep_calls": len(calls), **c}
+                    if rank == 0:
+                        r["layers_bit_equal"] = _ep_layers_bit_equal(
+                            cfg, model, params, plain_params, calls)
+                        calls.clear()
+                        with L.plain_ep_routing(1, 2):
+                            rtoks, rlg, _ = _ep_decode(
+                                plain, plain_params, prompts, c["steps"],
+                                force=toks[:, :-1])
+                        err = float((lg - rlg).abs().max())
+                        scale = float(rlg.abs().max())
+                        if not err <= EP_LOGITS_TOL * scale:
+                            raise AssertionError(
+                                f"phase 17 (b) {arch} {pol}: logits "
+                                f"{err} of {scale}")
+                        r.update(logits_max_err=err, logits_max=scale,
+                                 tokens_equal=int((rtoks == toks).sum()),
+                                 tokens=toks.numel())
+                    rec["runs"][f"{pol}/{body}"] = r
+            rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            out[arch] = rec
+            del base, params, model, plain, plain_params
+            calls.clear()
+            torch.cuda.empty_cache()
+    finally:
+        L._moe_ep = orig
+    return out
+
+
+def _ep_worker(rank: int, d: str) -> int:
+    """A (b) worker process: rank ``rank`` of a two-rank gloo group on the
+    one card; its report in ``d``."""
+    import datetime
+    import faulthandler
+    import torch
+    import torch.distributed as dist
+    faulthandler.enable()      # a crash's traceback to the worker log
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{d}/store",
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        out = _ep_worker_run(rank, Path(d))
+    finally:
+        dist.destroy_process_group()
+    (Path(d) / f"rank{rank}.json").write_text(json.dumps(out))
+    return 0
+
+
+def _ep_two_ranks(src: Path) -> dict:
+    """(b) two gloo processes sharing the card (NCCL refuses two ranks on
+    one device), mesh 1 x 2: each rank's report."""
+    import shutil
+    import subprocess
+    import tempfile
+    d = Path(tempfile.mkdtemp(prefix="chip_smoke_ep2_"))
+    try:
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--src",
+             str(src), "--ep-rank", str(r), "--ep-dir", str(d)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(2)]
+        logs = []
+        try:
+            logs = [p.communicate(timeout=EP_WORKER_TIMEOUT) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        (OUT / "ep_workers.log").write_text("\n".join(
+            f"== rank {r} rc {p.returncode}\n{o}\n{e}" for r, (p, (o, e))
+            in enumerate(zip(procs, logs))))
+        if any(p.returncode for p in procs):
+            raise AssertionError(f"phase 17 (b): workers exited "
+                                 f"{[p.returncode for p in procs]}: "
+                                 f"{logs[0][1][-2000:]} {logs[1][1][-2000:]}")
+        return {r: json.loads((d / f"rank{r}.json").read_text())
+                for r in range(2)}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def _ep_dryrun() -> dict:
+    """(c) the dry run on the host: rank 0 of the placeholder 16 x 16 for
+    granite-moe-1b-a400m (train_4k: the all-to-all body; decode_32k: the
+    replicated-routing one) and deepseek-v2-236b (decode_32k, FSDP)."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.dryrun import _cell_model_flops, lower_cell
+    from repro_torch.launch.roofline import format_roofline, roofline
+    out = {}
+    try:
+        for arch, shape in ((EP_ARCH, "train_4k"), (EP_ARCH, "decode_32k"),
+                            ("deepseek_v2_236b", "decode_32k")):
+            t0 = time.perf_counter()
+            lowered, mesh, _, aux = lower_cell(arch, SHAPES[shape])
+            r = roofline(lowered.compile(), mesh,
+                         model_flops=_cell_model_flops(arch, SHAPES[shape]))
+            print(format_roofline(f"{arch} {shape} 16x16", r), flush=True)
+            if not r["fits_hbm"]:
+                raise AssertionError(f"phase 17 (c): {arch} {shape} does "
+                                     f"not fit 80 GB")
+            a2a = r["collective_counts"]["all-to-all"]
+            if (a2a > 0) != (shape == "train_4k"):
+                raise AssertionError(f"phase 17 (c): {arch} {shape}: "
+                                     f"{a2a} all-to-alls")
+            out[f"{arch}/{shape}"] = {
+                "compute_ms": r["compute_s"] * 1e3,
+                "memory_ms": r["memory_s"] * 1e3,
+                "collective_ms": r["collective_s"] * 1e3,
+                "dominant": r["dominant"],
+                "collective_counts": r["collective_counts"],
+                "collective_bytes": r["collective_bytes_by_kind"],
+                "peak_gb": r["memory"]["peak_bytes"] / 1e9,
+                "fits": r["fits_hbm"], "fsdp": aux["fsdp"],
+                "host_s": time.perf_counter() - t0}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return out
+
+
+def phase_ep(src: Path) -> dict:
+    """Phase 17, expert parallelism: (a) granite-moe-1b-a400m on a
+    one-rank NCCL mesh (``_moe_ep`` at tp = 1) against plain EP, decode
+    and trainer; (b) two gloo ranks on the card, mesh 1 x 2: granite
+    whole and DeepSeek-V2 cut to 2 layers, each expert-parallel layer
+    bit-equal to the plain function; (c) the MoE dry run on the host.
+    Returns (a)'s launches."""
+    import torch
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    _one_rank_world()
+    try:
+        one, launches = _ep_one_rank()
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    emit({"phase": "ep", "part": "a", "arch": EP_ARCH, "mesh": "1x1", **one,
+          "wall_s": time.perf_counter() - t0})
+    t1 = time.perf_counter()
+    two = _ep_two_ranks(src)
+    launches["quant_matmul"] = two[0]["deepseek_v2_236b"]["runs"][
+        "int8-mlp/ep_fn"]["launches"]["quant_matmul"]
+    emit({"phase": "ep", "part": "b", "mesh": "1x2", "ranks": two,
+          "wall_s": time.perf_counter() - t1})
+    t1 = time.perf_counter()
+    dry = _ep_dryrun()
+    emit({"phase": "ep", "part": "c", "mesh": "16x16", "cells": dry,
+          "wall_s": time.perf_counter() - t1})
+    emit({"phase": "ep_done", "launches": launches,
           "wall_s": time.perf_counter() - t0})
     return launches
 
@@ -4518,7 +4991,7 @@ def _row(name, source, replaces, launches, err, tol, kernel, plain, lib,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,8,9,10,11,12,13,14,15,16",
+                    default="1,2,3,4,5,6,8,9,10,11,12,13,14,15,16,17",
                     help="comma-separated phases to run (default: all "
                          "but 7)")
     ap.add_argument("--src", default=str(ROOT / "src"),
@@ -4526,6 +4999,9 @@ def main(argv=None) -> int:
                          "this checkout's); another commit's src/ with "
                          "--phases 1,6 times its kernels with this "
                          "script's rows")
+    ap.add_argument("--ep-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)   # phase 17 (b)'s workers
+    ap.add_argument("--ep-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     try:
@@ -4547,6 +5023,8 @@ def main(argv=None) -> int:
     # plain versions they are compared with (cuDNN would use TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.ep_rank is not None:
+        return _ep_worker(args.ep_rank, args.ep_dir)
     t0 = time.perf_counter()
     (OUT / "chip_smoke.jsonl").unlink(missing_ok=True)
     phase_s = {}        # each phase's wall seconds, for the done line
@@ -4572,6 +5050,7 @@ def main(argv=None) -> int:
     encdec_launches = run(14, phase_encdec, default={})
     train_launches = run(15, phase_train, default={})
     dist_launches = run(16, phase_dist, default={})
+    ep_launches = run(17, phase_ep, src, default={})
     flow_launches, durable_launches = {}, {}
     if 9 in phases or 10 in phases:
         model = params = None
@@ -4598,6 +5077,7 @@ def main(argv=None) -> int:
         row["encdec_launches"] = encdec_launches.get(row["name"], 0)
         row["train_launches"] = train_launches.get(row["name"], 0)
         row["dist_launches"] = dist_launches.get(row["name"], 0)
+        row["ep_launches"] = ep_launches.get(row["name"], 0)
     run(7, phase_profile)
     emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 3),
           "phase_s": phase_s})

@@ -28,8 +28,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.models import transformer as T
 from repro_torch.models.common import Ctx, resolve_device
-from repro_torch.parallel.sharding import (axis_sizes, batch_placements,
-                                           is_dtensor)
+from repro_torch.parallel.sharding import batch_placements, is_dtensor
 from repro_torch.quant.policy import PrecisionPolicy
 
 # MoE routers and SSM gate/Δ projections exempt from quant/prune by default
@@ -83,9 +82,12 @@ class LMModel:
     policy: PrecisionPolicy | None = None
     mesh: Any = None
     fsdp_params: bool = False
+    moe_fsdp_mode: str = "gather"
 
     def ctx(self, decode: bool = False) -> Ctx:
-        return Ctx(policy=self.policy, decode=decode, mesh=self.mesh)
+        return Ctx(policy=self.policy, decode=decode, mesh=self.mesh,
+                   fsdp_params=self.fsdp_params,
+                   moe_fsdp_mode=self.moe_fsdp_mode)
 
     # ----------------------------------------------------- dry-run surface
     @functools.cached_property
@@ -235,31 +237,28 @@ class LMModel:
         return T.lm_apply(ctx, self.cfg, params, tokens, cache=cache)
 
 
-# the families whose forward runs on DTensors
-MESH_FAMILIES = ("dense", "vlm")
-# the slice of ROADMAP Queue 1 that shards the experts over ``model``
-EXPERT_PARALLEL = ("expert parallelism (_moe_ep over a model axis wider "
-                   "than 1) waits for ROADMAP Queue 1's expert-parallel "
-                   "slice")
+# the families whose forward runs on DTensors: the dense decoders and
+# the MoE family (GQA or MLA attention, expert-parallel FFN)
+MESH_FAMILIES = ("dense", "vlm", "moe")
 
 
 def build_model(cfg: ArchConfig, policy: PrecisionPolicy | None = None,
                 device: str | torch.device | None = None, *, mesh=None,
-                fsdp_params: bool = False) -> LMModel:
+                fsdp_params: bool = False,
+                moe_fsdp_mode: str = "gather") -> LMModel:
     """The model handle; with ``mesh`` its parameters are expected as
     DTensors on that mesh (``runtime/train_loop.py``).  A mesh takes the
-    dense decoders (GQA; the ``dense`` and ``vlm`` families): a MoE config
-    on a ``model`` axis wider than 1 raises naming the expert-parallel
-    slice, and the other families (MoE, SSM, hybrid, enc-dec) raise on
-    any mesh."""
+    dense decoders and the MoE family (``layers._moe_ep`` over the
+    ``model`` axis; MLA on DTensors); the SSM, hybrid and enc-dec
+    families raise on any mesh.  ``moe_fsdp_mode`` is stored as the
+    reference stores it and changes nothing (:class:`Ctx`)."""
     if policy is None:
         policy = PrecisionPolicy(default="bf16", exempt=DEFAULT_EXEMPT)
-    if mesh is not None and cfg.is_moe \
-            and axis_sizes(mesh).get("model", 1) > 1:
-        raise NotImplementedError(f"{cfg.name}: {EXPERT_PARALLEL}")
-    if mesh is not None and (cfg.family not in MESH_FAMILIES or cfg.use_mla):
+    if mesh is not None and cfg.family not in MESH_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family on a device mesh waits "
-            f"with expert parallelism (ROADMAP Queue 1)")
+            f"for ROADMAP Queue 1's slice 15 (the SSM, hybrid and enc-dec "
+            f"families on a mesh)")
     return LMModel(cfg=cfg, device=resolve_device(device), policy=policy,
-                   mesh=mesh, fsdp_params=fsdp_params)
+                   mesh=mesh, fsdp_params=fsdp_params,
+                   moe_fsdp_mode=moe_fsdp_mode)

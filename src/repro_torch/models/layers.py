@@ -23,12 +23,16 @@ MLA (:func:`mla_attention`) and the MoE FFN (:func:`moe_ffn`) are
 computed by the JAX package outside any Pallas kernel, and here with
 plain PyTorch products: MLA's uncached and prefill paths through
 :func:`mea_attention`, its decode as fp32 attention over the whole
-compressed cache; the MoE FFN routes each token through its top-k
-experts in fp32, in fixed row blocks on the card.
+compressed cache; off a mesh the MoE FFN routes each token through its
+top-k experts in fp32, in fixed row blocks on the card; on a mesh it is
+the reference's expert parallelism (:func:`_moe_ep`: capacity, bf16
+expert products, all-to-alls over the ``model`` axis).
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 
 import torch
@@ -41,6 +45,7 @@ from repro_torch.models.common import (Ctx, Norm, act_fn, apply_rope,
                                        row_invariant_matmul)
 from repro_torch.parallel.sharding import (DP_AXES, axis_sizes,
                                            batch_placements, is_dtensor)
+from repro_torch.quant.policy import INT8, quantize_int8
 
 NEG_INF = -1e30
 EMPTY_POS = 2**30
@@ -354,13 +359,16 @@ def _heads_placements(ctx: Ctx, cfg: ArchConfig, rows: int,
                      batch_placements(ctx.mesh, rows=rows)))
 
 
-def _local(ctx: Ctx, fn, placements: tuple, out: tuple, *args):
+def _local(ctx: Ctx, fn, placements: tuple, out: tuple, *args,
+           grads: tuple | None = None):
     """``fn`` on each rank's local tensors (``local_map``): the args are
     first redistributed to ``placements`` (one per arg); the output takes
-    ``out``.  A kernel wrapper never sees a DTensor."""
+    ``out``; an arg's gradient leaves in ``grads``' placements (its own
+    by default).  A kernel wrapper never sees a DTensor."""
     from torch.distributed.tensor.experimental import local_map
     return local_map(fn, out_placements=list(out), in_placements=placements,
-                     device_mesh=ctx.mesh, redistribute_inputs=True)(*args)
+                     in_grad_placements=grads, device_mesh=ctx.mesh,
+                     redistribute_inputs=True)(*args)
 
 
 def _mesh_attention(ctx: Ctx, cfg: ArchConfig, p: Attention, x, positions,
@@ -477,7 +485,6 @@ def _seq_split_decode(cfg: ArchConfig, q, k, v, ck, cv, pos: int, coord):
     """One rank's part of :func:`_mesh_decode` over a sequence-sharded
     cache: (r, m, group) = this rank's chunk, the chunks and the ``model``
     process group.  fp32 inside, out in q's dtype."""
-    from torch.distributed import _functional_collectives as funcol
     r, m, group = coord
     s = q.shape[1]
     local_len = ck.shape[1]
@@ -493,13 +500,22 @@ def _seq_split_decode(cfg: ArchConfig, q, k, v, ck, cv, pos: int, coord):
     sgl = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale,
                        _expand_kv(ck, h).float())
     sgl = torch.where(mask[None, None, None, :], sgl, NEG_INF)
+    return _softmax_over_ranks(sgl, _expand_kv(cv, h), group, q.dtype)
+
+
+def _softmax_over_ranks(sgl, v, group, dtype):
+    """``softmax(sgl) @ v`` over the slots of every rank of ``group``, each
+    holding its own: the max, the sum and the weighted values of each
+    rank's slots all-reduced (flash-decoding across ranks).  ``sgl`` (B,
+    H, S, K) fp32 and masked, ``v`` (B, K, H, D); out (B, S, H, D) in
+    ``dtype``."""
+    from torch.distributed import _functional_collectives as funcol
     mx = funcol.all_reduce(sgl.amax(dim=-1), "max", group)
     w = torch.exp(sgl - mx[..., None])
     den = funcol.all_reduce(w.sum(dim=-1), "sum", group)
-    num = funcol.all_reduce(
-        torch.einsum("bhqk,bkhd->bqhd", w, _expand_kv(cv, h).float()),
-        "sum", group)
-    return (num / den.transpose(1, 2)[..., None]).to(q.dtype)
+    num = funcol.all_reduce(torch.einsum("bhqk,bkhd->bqhd", w, v.float()),
+                            "sum", group)
+    return (num / den.transpose(1, 2)[..., None]).to(dtype)
 
 
 def cache_len_for(cfg: ArchConfig, seq_len: int) -> int:
@@ -723,7 +739,8 @@ def mla_attention(ctx: Ctx, cfg: ArchConfig, p: MLA, x, positions,
     cache at attention time (fp32 products with ``wkv_b``, as the
     reference's einsums); q and k are ``nope + rope`` wide, v
     ``v_head_dim``.  ``wkv_b`` is no ``linear`` call, so no policy
-    reaches it."""
+    reaches it.  On a mesh the projections are sharded products and the
+    rest runs on each rank's batch rows and heads (:func:`_mesh_mla`)."""
     b, s, _ = x.shape
     h = cfg.n_heads
     nd, rd, vd = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
@@ -734,54 +751,166 @@ def mla_attention(ctx: Ctx, cfg: ArchConfig, p: MLA, x, positions,
         q = linear(ctx, "attn/wq_b", qa, p.wq_b)
     else:
         q = linear(ctx, "attn/wq", x, p.wq)
-    q = q.reshape(b, s, h, nd + rd)
-    q_rope = apply_rope(q[..., nd:], positions, cfg.rope_theta)
-
+    q = _whole_heads(q, h).reshape(b, s, h, nd + rd)
     kv_a = linear(ctx, "attn/wkv_a", x, p.wkv_a)
     ckv = norm_apply(cfg.norm, p.kv_a_norm, kv_a[..., :kvl])
-    k_rope = apply_rope(kv_a[:, :, None, kvl:], positions,
-                        cfg.rope_theta)[:, :, 0]
-
+    kr = kv_a[..., kvl:]
     decode = cache is not None and ctx.decode
+    if ctx.mesh is not None and is_dtensor(x):
+        out, cache = _mesh_mla(ctx, cfg, q, ckv, kr, p.wkv_b, positions,
+                               cache, decode)
+    else:
+        out, cache = _mla_core(cfg, q, ckv, kr, p.wkv_b, positions, cache,
+                               decode)
+    y = linear(ctx, "attn/wo", out.reshape(b, s, h * vd), p.wo)
+    return y, cache
+
+
+def _mla_rope(cfg: ArchConfig, q, kr, positions):
+    """(q with its rope part rotated, the rotated rope key (B, S, rd))."""
+    nd = cfg.nope_head_dim
+    q_rope = apply_rope(q[..., nd:], positions, cfg.rope_theta)
+    k_rope = apply_rope(kr[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return torch.cat([q[..., :nd], q_rope], dim=-1), k_rope
+
+
+def _mla_kv(cfg: ArchConfig, ckv, krope, wkv_b, dtype):
+    """The heads' keys (nope + rope) and values from the compressed
+    cache: fp32 products with ``wkv_b`` (its columns: the heads'), cast
+    to ``dtype``."""
+    nd, vd = cfg.nope_head_dim, cfg.v_head_dim
+    wkv = wkv_b.float().reshape(cfg.kv_lora_rank, -1, nd + vd)
+    h = wkv.shape[1]
+    cf = ckv.float()
+    k_nope = torch.einsum("bsc,chd->bshd", cf, wkv[..., :nd])
+    v = torch.einsum("bsc,chd->bshd", cf, wkv[..., nd:]).to(dtype)
+    k = torch.cat([k_nope.to(dtype),
+                   krope[:, :, None, :].expand(-1, -1, h, -1).to(dtype)],
+                  dim=-1)
+    return k, v
+
+
+def _mla_core(cfg: ArchConfig, q, ckv, kr, wkv_b, positions, cache, decode,
+              chunk: int = 0):
+    """MLA after its projections: q (B, S, h, nd + rd) for h heads (a
+    rank's on a mesh, ``wkv_b`` those heads' columns), the normed ``ckv``
+    and the unrotated rope key ``kr`` (B, S, rd).  A prefill's cache
+    holds the ``chunk``-th of equal chunks of the sequence (a rank's
+    part of a sequence-sharded cache) and only those rows are written.
+    Returns (out (B, S, h, vd), cache)."""
+    s = q.shape[1]
+    qfull, k_rope = _mla_rope(cfg, q, kr, positions)
     if decode:
         ckv_use, kr_use = cache["ckv"], cache["krope"]
         pos = int(cache["pos"])
         start = min(max(pos, 0), ckv_use.shape[1] - s)
         ckv_use[:, start:start + s] = ckv.to(ckv_use.dtype)
         kr_use[:, start:start + s] = k_rope.to(kr_use.dtype)
-        slot = torch.arange(ckv_use.shape[1], device=x.device)
-        kv_pos = torch.where(slot <= pos, slot, EMPTY_POS)
+        valid = torch.arange(ckv_use.shape[1], device=q.device) <= pos
         cache = {"ckv": ckv_use, "krope": kr_use, "pos": pos + s}
     else:
-        kv_pos = positions
         ckv_use, kr_use = ckv, k_rope
         if cache is not None:
-            cache["ckv"][:, :s] = ckv.to(cache["ckv"].dtype)
-            cache["krope"][:, :s] = k_rope.to(cache["krope"].dtype)
+            rows = cache["ckv"].shape[1]
+            lo, hi = chunk * rows, min((chunk + 1) * rows, s)
+            if hi > lo:
+                cache["ckv"][:, :hi - lo] = ckv[:, lo:hi].to(
+                    cache["ckv"].dtype)
+                cache["krope"][:, :hi - lo] = k_rope[:, lo:hi].to(
+                    cache["krope"].dtype)
             cache = {"ckv": cache["ckv"], "krope": cache["krope"], "pos": s}
-
-    wkv_b = p.wkv_b.float().reshape(kvl, h, nd + vd)
-    cf = ckv_use.float()
-    k_nope = torch.einsum("bsc,chd->bshd", cf, wkv_b[..., :nd])
-    v = torch.einsum("bsc,chd->bshd", cf, wkv_b[..., nd:]).to(x.dtype)
-    k = torch.cat([k_nope.to(x.dtype),
-                   kr_use[:, :, None, :].expand(-1, -1, h, -1).to(x.dtype)],
-                  dim=-1)
-    qfull = torch.cat([q[..., :nd], q_rope], dim=-1)
-
+    k, v = _mla_kv(cfg, ckv_use, kr_use, wkv_b, q.dtype)
     if decode:
-        scale = 1.0 / math.sqrt(nd + rd)
+        scale = 1.0 / math.sqrt(qfull.shape[-1])
         sgl = torch.einsum("bqhd,bkhd->bhqk", qfull.float() * scale,
                            k.float())
-        sgl = torch.where((kv_pos < EMPTY_POS)[None, None, None, :], sgl,
-                          NEG_INF)
+        sgl = torch.where(valid[None, None, None, :], sgl, NEG_INF)
         w = torch.softmax(sgl, dim=-1)
-        out = torch.einsum("bhqk,bkhd->bqhd", w, v.float()).to(x.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", w, v.float()).to(q.dtype)
     else:
-        out = mea_attention(qfull, k, v, positions, kv_pos, causal=True,
+        out = mea_attention(qfull, k, v, positions, positions, causal=True,
                             chunk=cfg.attn_chunk, bf16_operands=cfg.mea_bf16)
-    y = linear(ctx, "attn/wo", out.reshape(b, s, h * vd), p.wo)
-    return y, cache
+    return out, cache
+
+
+def _mesh_mla(ctx: Ctx, cfg: ArchConfig, q, ckv, kr, wkv_b, positions,
+              cache, decode):
+    """:func:`_mla_core` on DTensors, each rank on its batch rows and, where
+    they divide over ``model``, its heads (and ``wkv_b``'s columns of
+    them); the compressed K/V whole over ``model``.  The compressed cache
+    is placed by the rules (``cache_seq`` → ``model`` by default): a
+    prefill writes each rank's sequence chunk; a decode over a cache
+    whose sequence is sharded over ``model`` runs :func:`_mla_split_decode`
+    with every head on every rank, the softmax combined across ranks.
+    The gradients of the parts every head's rank reads (``ckv``, the
+    rope key) are partial over ``model``, ``wkv_b``'s over the batch
+    axes."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    names = ctx.mesh.mesh_dim_names
+    b = q.shape[0]
+    coord = None
+    if cache is not None:       # (the cache has no heads: only cpl, coord)
+        cpl, _, coord = _cache_layout(ctx, cfg, cache["ckv"])
+    qpl = _heads_placements(ctx, cfg, b,
+                            split=False if decode and coord else None)
+    rows = batch_placements(ctx.mesh, rows=b)
+    heads = [isinstance(pl, Shard) and pl.dim == 2 for pl in qpl]
+    wpl = tuple(Shard(1) if hs else Replicate() for hs in heads)
+    wgrad = tuple(Partial() if a in DP_AXES and pl != Replicate() else w
+                  for a, pl, w in zip(names, rows, wpl))
+    kvgrad = tuple(Partial() if hs else pl for hs, pl in zip(heads, rows))
+    args = [q, ckv, kr, wkv_b]
+    pls, grads = [qpl, rows, rows, wpl], [qpl, kvgrad, kvgrad, wgrad]
+    if cache is not None:
+        args += [cache["ckv"], cache["krope"]]
+        pls += [cpl, cpl]
+        grads += [cpl, cpl]
+    pos = None if cache is None else int(cache["pos"])
+
+    def core(q, ckv, kr, wkv_b, *kv_cache):
+        lc = None if not kv_cache else {"ckv": kv_cache[0],
+                                        "krope": kv_cache[1], "pos": pos}
+        if decode and coord:
+            return _mla_split_decode(cfg, q, ckv, kr, wkv_b, positions, lc,
+                                     coord)
+        return _mla_core(cfg, q, ckv, kr, wkv_b, positions, lc, decode,
+                         chunk=coord[0] if coord else 0)[0]
+
+    out = _local(ctx, core, tuple(pls), qpl, *args, grads=tuple(grads))
+    if cache is not None:
+        s = q.shape[1]
+        cache = {"ckv": cache["ckv"], "krope": cache["krope"],
+                 "pos": pos + s if decode else s}
+    return out, cache
+
+
+def _mla_split_decode(cfg: ArchConfig, q, ckv, kr, wkv_b, positions, cache,
+                      coord):
+    """One rank's MLA decode over a sequence-sharded compressed cache
+    (``cache_len / m`` slots a rank; (r, m, group) = this rank's chunk,
+    the chunks and the ``model`` group): the new tokens are written by
+    the rank that holds their slots, each rank takes the softmax's max,
+    sum and weighted values over its valid slots (``<= pos``) for every
+    head, and an all-reduce of the three combines them.  fp32 inside,
+    out in q's dtype."""
+    r, m, group = coord
+    ck, ckr = cache["ckv"], cache["krope"]
+    pos = cache["pos"]
+    s = q.shape[1]
+    qfull, k_rope = _mla_rope(cfg, q, kr, positions)
+    local_len = ck.shape[1]
+    lo = r * local_len
+    start = min(max(pos, 0), local_len * m - s)
+    for j in range(s):                    # the rows this rank holds
+        if lo <= start + j < lo + local_len:
+            ck[:, start + j - lo] = ckv[:, j].to(ck.dtype)
+            ckr[:, start + j - lo] = k_rope[:, j].to(ckr.dtype)
+    valid = torch.arange(lo, lo + local_len, device=q.device) <= pos
+    k, v = _mla_kv(cfg, ck, ckr, wkv_b, q.dtype)
+    scale = 1.0 / math.sqrt(qfull.shape[-1])
+    sgl = torch.einsum("bqhd,bkhd->bhqk", qfull.float() * scale, k.float())
+    sgl = torch.where(valid[None, None, None, :], sgl, NEG_INF)
+    return _softmax_over_ranks(sgl, v, group, q.dtype)
 
 
 MLA_CACHE_AXES = {"ckv": ("batch", "cache_seq", "kv_lora"),
@@ -908,20 +1037,37 @@ def _router(cfg: ArchConfig, router_w, x):
 
 
 def moe_ffn(ctx: Ctx, cfg: ArchConfig, p: MoE, x):
-    """Top-k routed MoE: the JAX package's single-device function.
+    """Top-k routed MoE, dispatched as the JAX package's ``moe_ffn``.
 
-    The reference (``_moe_dense_reference``) multiplies every token
-    through every expert in fp32 and weights the results by a combine
-    matrix that is zero outside the token's top-k; here each token goes
-    through its top-k experts only (:func:`_moe_routed`), which computes
-    the same sum.  Like the reference's, the routed experts ignore the
-    policy.  The shared experts are a GLU ``mlp`` (``mlp/…`` names, so a
-    policy reaches them) added after the routed sum is cast to
-    ``x.dtype``."""
+    - On a mesh (DTensors) with a ``model`` axis whose size divides the
+      experts — a 1 x 1 mesh among them — the expert-parallel
+      :func:`_moe_ep` (capacity, bf16 expert products), as the reference
+      takes ``_moe_ep`` whenever its mesh has that axis.
+    - Off a mesh the reference's ``_moe_dense_reference`` multiplies
+      every token through every expert in fp32 and weights the results
+      by a combine matrix that is zero outside the token's top-k; here
+      each token goes through its top-k experts only
+      (:func:`_moe_routed`), which computes the same sum; like the
+      reference's, these routed experts ignore the policy.  Inside
+      :func:`plain_ep_routing` the plain expert-parallel function
+      (:func:`moe_ffn_ep_plain`) takes their place.
+
+    The shared experts are a GLU ``mlp`` (``mlp/…`` names, so a policy
+    reaches them) added after the routed sum is cast to ``x.dtype``."""
     y_shared = 0.0
     if cfg.n_shared_experts:
         y_shared = mlp(ctx, cfg.replace(mlp="glu"), p.shared, x)
-    y = _moe_routed(cfg, p, x, MOE_ROW_BLOCK if x.is_cuda else None)
+    if ctx.mesh is not None and is_dtensor(x):
+        tp = axis_sizes(ctx.mesh).get("model")
+        if tp is None or cfg.n_experts % tp:
+            raise NotImplementedError(
+                f"{cfg.name}: {cfg.n_experts} experts over a model axis of "
+                f"{tp}: expert parallelism needs the axis to divide them")
+        y = _moe_ep(ctx, cfg, p, x)
+    elif _plain_ep is not None:
+        y = moe_ffn_ep_plain(ctx, cfg, p, x, *_plain_ep)
+    else:
+        y = _moe_routed(cfg, p, x, MOE_ROW_BLOCK if x.is_cuda else None)
     return y + y_shared
 
 
@@ -987,13 +1133,388 @@ def _moe_routed(cfg: ArchConfig, p: MoE, x, row_block: int | None):
     return y.reshape(b, s, d).to(x.dtype)
 
 
+# ------------------------------------------------- expert parallelism
+def _rank_in_expert(ids: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Position of each routing within its expert's queue, in routing
+    order: a stable sort of the expert ids, each expert's first place in
+    it, and the inverse permutation — the JAX package's
+    ``_rank_in_expert``, integer work only.  No value is read back to the
+    host."""
+    nk = ids.shape[0]
+    sorted_ids, sort_idx = torch.sort(ids, stable=True)
+    starts = torch.searchsorted(sorted_ids,
+                                torch.arange(n_experts, device=ids.device))
+    pos = torch.empty_like(sort_idx)
+    pos[sort_idx] = torch.arange(nk, device=ids.device) - starts[sorted_ids]
+    return pos
+
+
+def _expert_ffn(ctx: Ctx, recv, wg, wu, wd):
+    """(E, C, d) tokens through each expert's GLU, ``wg``/``wu`` (E, d, f)
+    and ``wd`` (E, f, d): bf16 operands with fp32 products (the
+    reference's ``preferred_element_type=float32`` einsums: the
+    bf16-rounded operands multiplied in fp32), SiLU in fp32, the hidden
+    rounded to bf16, the output cast to ``recv``'s dtype.
+
+    Under the INT8 ``moe/experts`` level each expert is quantized per
+    output channel: decode multiplies the dequantized values (the
+    reference's comment names a Pallas kernel its code does not call);
+    training is straight-through (the quantized forward, the
+    full-precision gradient).  These are plain products outside any
+    kernel, in the JAX package too."""
+    if ctx.level_for("moe/experts") == INT8:
+        def q3(w):
+            qw, sc = quantize_int8(w, axis=1)
+            deq = qw.float() * sc
+            if ctx.decode:
+                return deq
+            wf = w.float()
+            return wf + (deq - wf).detach()
+        wg, wu, wd = q3(wg), q3(wu), q3(wd)
+
+    def bf(t):
+        return t.to(torch.bfloat16).float()
+    rg, ru = _Bf16Pair.apply(recv)
+    g = torch.bmm(rg, bf(wg))
+    u = torch.bmm(ru, bf(wu))
+    h = bf(F.silu(g) * u)
+    return torch.bmm(h, bf(wd)).to(recv.dtype)
+
+
+class _Bf16Pair(torch.autograd.Function):
+    """``x`` rounded to bf16, as fp32, for two products: the reference
+    reads one bf16 value twice, so the two products' gradients are each
+    rounded to bf16 and added in bf16 before they reach ``x`` (rounding
+    their fp32 sum once instead moves a bf16 step)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        r = x.to(torch.bfloat16).float()
+        return r, r.clone()
+
+    @staticmethod
+    def backward(ctx, g1, g2):
+        gs = [g.to(torch.bfloat16) for g in (g1, g2) if g is not None]
+        g = gs[0] if len(gs) == 1 else gs[0] + gs[1]
+        return g.to(ctx.dtype)
+
+
+def _ep_capacity(cfg: ArchConfig, n_tokens: int) -> int:
+    """Slots an expert keeps for ``n_tokens`` routed tokens."""
+    return max(8, int(math.ceil(n_tokens * cfg.top_k * cfg.capacity_factor
+                                / cfg.n_experts)))
+
+
+def _ep_dispatch(cfg: ArchConfig, router_w, x2, e_lo: int, e_n: int):
+    """Route the n tokens of ``x2`` (n, d) and lay the routings to experts
+    ``[e_lo, e_lo + e_n)`` out by expert under the capacity of n tokens.
+
+    Returns (the (e_n · cap, d) dispatch buffer — row ``(e - e_lo) · cap
+    + q`` holds the q-th token routed to expert e, zeros where none —,
+    each routing's slot (``e_n · cap`` when dropped), each routing's gate
+    (0 when dropped), cap).  The buffer is gathered through the inverse
+    of the slot map: every dropped routing points at the one trash slot,
+    which is cut off, so no live row is written twice (the reference
+    scatters with ``.at[slot].set``)."""
+    e, k = cfg.n_experts, cfg.top_k
+    n, d = x2.shape
+    gates, eidx = _router(cfg, router_w, x2)
+    ids = eidx.reshape(-1)
+    cap = _ep_capacity(cfg, n)
+    pos = _rank_in_expert(ids, e)
+    keep = pos < cap
+    if e_n < e:
+        keep = keep & (ids >= e_lo) & (ids < e_lo + e_n)
+    slot = torch.where(keep, (ids - e_lo) * cap + pos, e_n * cap)
+    inv = torch.full((e_n * cap + 1,), n * k, dtype=torch.long,
+                     device=x2.device)
+    inv[slot] = torch.arange(n * k, device=x2.device)
+    xz = torch.cat([x2, x2.new_zeros((1, d))])
+    disp = xz[inv[:e_n * cap] // k]      # a free slot reads the zero row
+    return disp, slot, gates.reshape(-1) * keep, cap
+
+
+def _ep_combine(y, slot, wgt, k: int, dtype):
+    """Each token's k expert outputs (rows ``slot`` of ``y``, a dropped
+    routing's the zero row) times their gates in ``y``'s dtype, then
+    summed in k order in ``dtype`` (the reference's ``segment_sum`` over
+    each token's k contiguous routings; no atomic scatter)."""
+    d = y.shape[-1]
+    yz = torch.cat([y, y.new_zeros((1, d))])
+    yt = (yz[slot] * wgt[:, None].to(y.dtype)).to(dtype).reshape(-1, k, d)
+    ys = yt[:, 0]
+    for j in range(1, k):
+        ys = ys + yt[:, j]
+    return ys
+
+
+def _ep_recv(t, tp: int, e_loc: int, cap: int):
+    """The dispatch buffers a rank received, (tp · e_loc · cap, d) in
+    source-rank order, as its experts' (e_loc, tp · cap, d) queues."""
+    d = t.shape[-1]
+    return t.reshape(tp, e_loc, cap, d).transpose(0, 1).reshape(
+        e_loc, tp * cap, d)
+
+
+def _ep_send(y, tp: int, cap: int):
+    """The inverse of :func:`_ep_recv`: the experts' outputs (e_loc,
+    tp · cap, d) in destination-rank order, (tp · e_loc · cap, d)."""
+    e_loc, _, d = y.shape
+    return y.reshape(e_loc, tp, cap, d).transpose(0, 1).reshape(
+        tp * e_loc * cap, d)
+
+
+def _ep_small(n_loc: int, tp: int) -> bool:
+    """The reference's static rule: a data shard's ``n_loc`` tokens that
+    do not split evenly into ``tp`` non-empty slices (decode) take the
+    replicated-routing body, the others the all-to-all body."""
+    return not (n_loc % tp == 0 and n_loc >= tp)
+
+
+def _wait(t):
+    from torch.distributed._functional_collectives import \
+        AsyncCollectiveTensor
+    return t.wait() if isinstance(t, AsyncCollectiveTensor) else t
+
+
+class _AllToAll(torch.autograd.Function):
+    """Equal-split all-to-all of dim 0 over ``group``; with equal splits
+    it is its own adjoint, so the backward is the same exchange."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        from torch.distributed import _functional_collectives as funcol
+        ctx.group = group
+        return _wait(funcol.all_to_all_single(t.contiguous(), None, None,
+                                              group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return _AllToAll.apply(g, ctx.group), None
+
+
+class _GatherRows(torch.autograd.Function):
+    """All-gather of dim 0 over ``group`` into an output that is the same
+    on every rank.  The gradient arriving there is the same on every
+    rank (a replicated DTensor's), so each rank's input takes its own
+    rows of it — the reference's unchecked ``shard_map`` divides the
+    replicated cotangent by the axis size before its reduce-scatter, to
+    the same effect."""
+
+    @staticmethod
+    def forward(ctx, t, group, rank):
+        from torch.distributed import _functional_collectives as funcol
+        ctx.rank, ctx.rows = rank, t.shape[0]
+        return _wait(funcol.all_gather_tensor(t.contiguous(), 0, group))
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.rank * ctx.rows
+        return g[lo:lo + ctx.rows], None, None
+
+
+class _SumRanks(torch.autograd.Function):
+    """All-reduce (sum) over ``group`` into an output that is the same on
+    every rank; the gradient of each rank's term is the (replicated)
+    output gradient itself."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        from torch.distributed import _functional_collectives as funcol
+        return _wait(funcol.all_reduce(t, "sum", group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _moe_ep(ctx: Ctx, cfg: ArchConfig, p: MoE, x):
+    """Expert parallelism over the ``model`` axis: the JAX package's
+    ``_moe_ep``, its ``shard_map`` a ``local_map``.
+
+    Placements: ``x`` its batch rows over the data-parallel axes, whole
+    over ``model``; the router whole; the experts' leading dim over
+    ``model`` (``e_loc = E / tp`` a rank), whole elsewhere.  With
+    ``ctx.fsdp_params`` the reference takes the expert weights
+    f-sharded over the data-parallel axes and gathers them inside its
+    body; here ``local_map`` gathers them on the way in, whatever their
+    FSDP placement (both ``moe_fsdp_mode`` values: the reference gathers
+    in both).  Each rank's body (:func:`_ep_small` picks one, from the
+    static token count of a data shard):
+
+    - all-to-all (prefill, training): the rank's ``n_loc / tp`` token
+      slice is routed under ``cap = max(8, ⌈n · k · capacity_factor /
+      E⌉)``, laid out (tp, e_loc, cap, d) and exchanged so each rank
+      holds its experts' queues from every rank (:class:`_AllToAll`);
+      its experts run (:func:`_expert_ffn`); the outputs go back; each
+      token's k outputs are summed in fp32, cast to x's dtype, and the
+      slices gathered over ``model`` (:class:`_GatherRows`);
+    - replicated routing (decode with fewer tokens a data shard than
+      ``tp``, or a count ``tp`` does not divide): every rank routes all
+      its data shard's tokens, keeps its own experts' routings under the
+      same capacity rule, sums each token's k outputs in x's dtype, and
+      the ranks' sums are added (:class:`_SumRanks`).
+
+    The layout is static: no value comes back to the host.  A ``model``
+    axis of 1 runs the same bodies without a collective.  The gradients
+    leave the body partial over the ranks that saw other tokens (the
+    router's and x's over ``model``, the router's and the weights' over
+    the data axes) and DTensor reduces them."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = ctx.mesh
+    names = mesh.mesh_dim_names
+    tp = mesh.size(names.index("model"))
+    rank = mesh.get_coordinate()[names.index("model")]
+    group = mesh.get_group("model") if tp > 1 else None
+    e, k = cfg.n_experts, cfg.top_k
+    e_loc = e // tp
+    b, s, d = x.shape
+    dp = math.prod(mesh.size(i) for i, a in enumerate(names) if a in DP_AXES)
+    split = b % dp == 0
+    n_loc = (b // dp if split else b) * s
+
+    def place(model, data):
+        return tuple(model if a == "model" else data for a in names)
+
+    rows = Shard(0) if split else Replicate()
+    part = Partial() if split else Replicate()
+    x_pl, x_grad = place(Replicate(), rows), place(Partial(), rows)
+    r_pl, r_grad = place(Replicate(), Replicate()), place(Partial(), part)
+    w_pl, w_grad = place(Shard(0), Replicate()), place(Shard(0), part)
+
+    def ep_fn(xl, router_w, wg, wu, wd):
+        x2 = xl.reshape(n_loc, d)
+        n_slice = n_loc // tp
+        xs = x2[rank * n_slice:(rank + 1) * n_slice]
+        disp, slot, wgt, cap = _ep_dispatch(cfg, router_w, xs, 0, e)
+        if tp > 1:
+            disp = _AllToAll.apply(disp, group)
+        y = _expert_ffn(ctx, _ep_recv(disp, tp, e_loc, cap), wg, wu, wd)
+        y = _ep_send(y, tp, cap)
+        if tp > 1:
+            y = _AllToAll.apply(y, group)
+        ys = _ep_combine(y, slot, wgt, k, torch.float32).to(xl.dtype)
+        if tp > 1:
+            ys = _GatherRows.apply(ys, group, rank)
+        return ys.reshape(xl.shape)
+
+    def ep_small_fn(xl, router_w, wg, wu, wd):
+        x2 = xl.reshape(n_loc, d)
+        disp, slot, wgt, cap = _ep_dispatch(cfg, router_w, x2,
+                                            rank * e_loc, e_loc)
+        y = _expert_ffn(ctx, disp.reshape(e_loc, cap, d), wg, wu, wd)
+        ys = _ep_combine(y.reshape(e_loc * cap, d), slot, wgt, k, y.dtype)
+        if tp > 1:
+            ys = _SumRanks.apply(ys, group)
+        return ys.reshape(xl.shape)
+
+    body = ep_small_fn if _ep_small(n_loc, tp) else ep_fn
+    return local_map(body, out_placements=list(x_pl),
+                     in_placements=(x_pl, r_pl, w_pl, w_pl, w_pl),
+                     in_grad_placements=(x_grad, r_grad, w_grad, w_grad,
+                                         w_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        x, p.router, p.w_gate, p.w_up, p.w_down)
+
+
+def moe_ffn_ep_plain(ctx: Ctx, cfg: ArchConfig, p: MoE, x, dp: int,
+                     tp: int):
+    """The plain version of :func:`_moe_ep` at (dp, tp): every rank's
+    body in turn in one process, on plain tensors, with the collectives
+    done here — the all-to-all a transpose of the per-rank lists, the
+    sum over ``model`` an addition in rank order, the all-gather a
+    concatenation.  ``x`` (B, S, d) and the weights whole; the routed
+    part only, as :func:`_moe_ep`.  The yardstick a sharded run is held
+    against (tests, ``chip_smoke.py``); no entry point calls it."""
+    e, k = cfg.n_experts, cfg.top_k
+    e_loc = e // tp
+    b, s, d = x.shape
+    shards = dp if b % dp == 0 else 1
+    rows = b // shards
+    n_loc = rows * s
+    w = [tuple(t[j * e_loc:(j + 1) * e_loc]
+               for t in (p.w_gate, p.w_up, p.w_down)) for j in range(tp)]
+    out = []
+    for i in range(shards):
+        x2 = x[i * rows:(i + 1) * rows].reshape(n_loc, d)
+        if _ep_small(n_loc, tp):
+            ys = None
+            for r in range(tp):
+                disp, slot, wgt, cap = _ep_dispatch(cfg, p.router, x2,
+                                                    r * e_loc, e_loc)
+                y = _expert_ffn(ctx, disp.reshape(e_loc, cap, d), *w[r])
+                part = _ep_combine(y.reshape(e_loc * cap, d), slot, wgt, k,
+                                   y.dtype)
+                ys = part if ys is None else ys + part
+            out.append(ys)
+            continue
+        n_slice = n_loc // tp
+        routed = [_ep_dispatch(cfg, p.router,
+                               x2[r * n_slice:(r + 1) * n_slice], 0, e)
+                  for r in range(tp)]
+        cap = routed[0][3]
+        # rank j receives chunk j of every rank's buffer, in rank order
+        sent = [t[0].reshape(tp, e_loc * cap, d) for t in routed]
+        back = [_ep_send(_expert_ffn(
+                    ctx, _ep_recv(torch.cat([sent[r][j] for r in range(tp)]),
+                                  tp, e_loc, cap), *w[j]), tp, cap)
+                .reshape(tp, e_loc * cap, d) for j in range(tp)]
+        out += [_ep_combine(torch.cat([back[j][r] for j in range(tp)]),
+                            routed[r][1], routed[r][2], k,
+                            torch.float32).to(x.dtype) for r in range(tp)]
+    return torch.cat(out).reshape(b, s, d)
+
+
+# (dp, tp) while :func:`plain_ep_routing` is entered, else None
+_plain_ep = None
+
+
+@contextlib.contextmanager
+def plain_ep_routing(dp: int, tp: int):
+    """Within it, :func:`moe_ffn` off a mesh routes through
+    :func:`moe_ffn_ep_plain` at (dp, tp) instead of :func:`_moe_routed`:
+    the model a sharded run on a (dp, tp) mesh is held against, since
+    the capacity, and so the routings kept, depend on tp.  For the tests
+    and ``chip_smoke.py``."""
+    global _plain_ep
+    prev, _plain_ep = _plain_ep, (dp, tp)
+    try:
+        yield
+    finally:
+        _plain_ep = prev
+
+
 def moe_aux_loss(cfg: ArchConfig, router_w, x) -> torch.Tensor:
     """Switch-style load-balancing auxiliary loss: ``E * sum_e (share of
-    top-k routings to e) * (mean router probability of e)``."""
-    x2 = x.reshape(-1, x.shape[-1])
-    probs = torch.softmax(x2.float() @ router_w.float(), dim=-1)
+    top-k routings to e) * (mean router probability of e)``.  On DTensors
+    each rank sums its batch rows' routings and probabilities
+    (``local_map``; the sums partial over the data-parallel axes), and
+    the shares and the loss are DTensor arithmetic on them."""
+    n = math.prod(x.shape[:-1])
+    if is_dtensor(x):
+        from torch.distributed.tensor import Partial, Replicate
+        from torch.distributed.tensor.experimental import local_map
+        mesh = x.device_mesh
+        rows = batch_placements(mesh, rows=x.shape[0])
+        sums = tuple(Partial() if pl != Replicate() else pl for pl in rows)
+        tokens, probs = local_map(
+            functools.partial(_aux_sums, cfg),
+            out_placements=(list(sums), list(sums)),
+            in_placements=(rows, (Replicate(),) * mesh.ndim),
+            in_grad_placements=(rows, sums), device_mesh=mesh,
+            redistribute_inputs=True)(x, router_w)
+    else:
+        tokens, probs = _aux_sums(cfg, x, router_w)
+    return cfg.n_experts * torch.sum((tokens / n) * (probs / n))
+
+
+def _aux_sums(cfg: ArchConfig, x, router_w):
+    """(top-k routings to each expert, summed router probabilities of
+    each expert) over the tokens of ``x`` (..., d), fp32."""
+    probs = torch.softmax(x.reshape(-1, x.shape[-1]).float()
+                          @ router_w.float(), dim=-1)
     _, eidx = _top_k(probs, cfg.top_k)
     onehot = F.one_hot(eidx, cfg.n_experts).float()
-    frac_tokens = onehot.sum(dim=1).mean(dim=0)
-    frac_probs = probs.mean(dim=0)
-    return cfg.n_experts * torch.sum(frac_tokens * frac_probs)
+    return onehot.sum(dim=1).sum(dim=0), probs.sum(dim=0)

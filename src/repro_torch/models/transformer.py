@@ -69,20 +69,43 @@ _dots_context = functools.partial(create_selective_checkpoint_contexts,
                                   _dots_policy)
 
 
+def _dots_moe_context():
+    """``"dots+moe"``: :func:`_dots_policy`, and the output of each MoE
+    layer's dispatch all-to-all saved (the reference's ``"moe_recv"``),
+    so that the backward's recompute does not exchange the tokens again.
+    An expert-parallel layer runs two all-to-alls, the dispatch first
+    (``layers._moe_ep``); the policy counts them, in the forward and in
+    the recompute alike, and saves every other one."""
+    seen = {False: 0, True: 0}
+    a2a = torch.ops._c10d_functional.all_to_all_single.default
+
+    def policy(ctx, op, *args, **kwargs):
+        if op is a2a:
+            i = seen[ctx.is_recompute]
+            seen[ctx.is_recompute] += 1
+            return (CheckpointPolicy.MUST_SAVE if i % 2 == 0
+                    else CheckpointPolicy.PREFER_RECOMPUTE)
+        return _dots_policy(ctx, op, *args, **kwargs)
+    return create_selective_checkpoint_contexts(policy)
+
+
 def _remat(cfg: ArchConfig, fn):
     """``fn`` (one block's apply) under ``cfg.remat``, the counterpart of
     the JAX package's ``_remat``: ``"none"`` keeps every activation for
     the backward; ``"full"`` keeps the block's inputs and recomputes the
     rest; ``"dots"`` also keeps the products' outputs (:func:`_dots_policy`);
-    ``"dots+moe"`` is ``"dots"`` on one device (its extra names are the
-    expert-parallel all-to-all's, which one device does not run).  It
-    applies only while autograd records the block (grad enabled, and its
-    input or one of its parameters requiring grad): the cached paths and
-    evaluation run without it.  The result is bit for bit the same; only
-    what the backward keeps and recomputes changes."""
+    ``"dots+moe"`` the products' and the expert-parallel dispatch's
+    (:func:`_dots_moe_context`; off a mesh there is no dispatch and it
+    is ``"dots"``).  It applies only while autograd records the block
+    (grad enabled, and its input or one of its parameters requiring
+    grad): the cached paths and evaluation run without it.  The result is
+    bit for bit the same; only what the backward keeps and recomputes
+    changes."""
     if cfg.remat == "none":
         return fn
-    kw = {} if cfg.remat == "full" else {"context_fn": _dots_context}
+    kw = ({} if cfg.remat == "full" else
+          {"context_fn": _dots_moe_context} if cfg.remat == "dots+moe"
+          else {"context_fn": _dots_context})
 
     def records(args) -> bool:
         return torch.is_grad_enabled() and any(

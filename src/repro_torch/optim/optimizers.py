@@ -103,8 +103,11 @@ def cosine_schedule(peak_lr: float, warmup_steps: int,
 # ------------------------------------------------------------ clipping
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in fp32, the leaves
-    summed in pytree order (a 0-d tensor on the leaves' device)."""
-    return torch.sqrt(sum(torch.sum(torch.square(leaf.float()))
+    summed in pytree order (a 0-d tensor on the leaves' device).  Each
+    leaf is summed in row-major order whatever its strides (a tied
+    embedding's gradient comes out transposed on one path and not on
+    another), so equal gradients give equal norms."""
+    return torch.sqrt(sum(torch.sum(torch.square(leaf.float().contiguous()))
                           for leaf in tree_leaves(tree)))
 
 

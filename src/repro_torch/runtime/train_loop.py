@@ -35,7 +35,12 @@ seed, and the train step runs unchanged on them — each gradient is
 reduced to its parameter's placements, the clipping norm is a full
 reduction over the DTensors, and each leaf's AdamW update runs in its
 moments' placements (the same fp32 arithmetic, on each rank's shard)
-before the parameter takes it back in its own.
+before the parameter takes it back in its own.  A MoE model's experts
+sit over ``model`` (the ``experts`` rule; ``fsdp`` shards another of
+their dims over the data axes): their gradients leave the
+expert-parallel layer partial over the data axes only, so the
+reduction to their placements never crosses ``model``.  The MLA cache is placed like the GQA one
+(``cache_seq`` over ``model``).
 """
 
 from __future__ import annotations

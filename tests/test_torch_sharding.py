@@ -483,14 +483,15 @@ def test_launch_train_mesh_2x2_equals_1x1(ranks, tmp_path, capsys):
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_mesh_refusals_by_family(arch):
-    """A mesh takes the dense decoders; a MoE config on a ``model`` axis
-    wider than 1 names the expert-parallel slice; the other families
-    refuse any mesh (a shape-only mesh: the check reads its sizes)."""
+    """A mesh takes the dense decoders and the MoE family (GQA and MLA,
+    experts over ``model``); the SSM, hybrid and enc-dec families refuse
+    any mesh, naming the slice that brings them (a shape-only mesh: the
+    check reads its sizes)."""
     cfg = get_config(arch)
     mesh = S.MeshShape(("data", "model"), (2, 2))
-    if cfg.family in tapi.MESH_FAMILIES:
+    if cfg.family in ("dense", "vlm", "moe"):
+        assert cfg.family in tapi.MESH_FAMILIES
         assert tapi.build_model(cfg, device="cpu", mesh=mesh).mesh is mesh
         return
-    match = "expert parallelism" if cfg.is_moe else "waits"
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError, match="slice 15"):
         tapi.build_model(cfg, device="cpu", mesh=mesh)
