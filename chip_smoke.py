@@ -3902,29 +3902,48 @@ EP_DECODE = dict(batch=8, prompt_len=128, steps=8)   # (a), (b): ep_fn
 EP_SMALL = dict(batch=1, prompt_len=128, steps=4)    # (b): ep_small_fn
 EP_DEEPSEEK_LAYERS = 2            # of 60, as phase 12
 EP_DEEPSEEK = dict(batch=4, prompt_len=64, steps=4)
+# (b)'s fp32 runs: a step fewer, so the cache's prompt + steps + 1 slots
+# divide over ``model`` and the rules split its sequence (the softmax
+# combined across ranks); the bf16 runs' odd counts keep it whole, the
+# heads split
+EP_FP32 = dict(EP_DECODE, steps=7)
+EP_DEEPSEEK_FP32 = dict(EP_DEEPSEEK, steps=3)
 EP_TRAIN_LAYERS = 2               # (a)'s trainer: granite 24 -> 2 layers
 # (b): rank 0's last logits against the unsharded model routed through
-# the plain function at (1, 2), as a share of the largest |logit|: the
-# mesh splits the attention's heads and products over ``model`` and
-# runs the plain attention there, so only the expert-parallel layers
-# are bit-equal (gated layer by layer); bf16 activations round the rest
-EP_LOGITS_TOL = 0.05
+# the plain function at (1, 2), with the plain attention the mesh runs,
+# as a share of the largest |logit|, by policy.  Only the expert-parallel
+# layers are bit-equal (gated layer by layer): the mesh splits the
+# attention's heads, its cache's sequence and the products over
+# ``model``, and adds the ranks' partial sums.  Where a difference moves
+# a token's top-k experts in some layer (a routing flip,
+# ``_flipped_rows``), its row's logits jump.  "fp32" (fp32 activations
+# and products, the experts' too) holds the rows without a flip: they
+# read <= 1.93e-6, flipped rows <= 1.0e-3 (one H100, 700 W).  Under bf16
+# every row of granite's and DeepSeek-V2's runs flipped, reading
+# 0.009-0.056, so bf16 holds every row at about twice that (at full
+# width a flip swaps the smallest of 8 or 6 gates; at smoke size, one of
+# 2, and bf16 rows read up to 0.49).  A fault reads far above both:
+# without the cross-rank max of the split cache's softmax, at smoke
+# size, granite's one unflipped fp32 row 0.20 (DeepSeek-V2's fp32 rows
+# all flipped: none held, which fails) and its bf16 rows 0.88
+EP_LOGITS_TOL = {"fp32": 1e-4, "bf16": 0.1, "int8-mlp": 0.1}
 EP_WORKER_TIMEOUT = 900
 
 
 def _ep_decode(model, params, prompts, steps, mesh=None, force=None):
     """A prefill and ``steps`` greedy steps through ``make_prefill_step``
     / ``make_decode_step`` (on ``mesh``: the cache placed by the rules,
-    inputs distributed, logits gathered).  ``force``: feed these tokens
-    (B, steps + 1) instead of the argmax.  Returns (tokens, the last
-    step's logits on the host, each step's ms)."""
+    inputs distributed, logits gathered), the cache in the activations'
+    dtype.  ``force``: feed these tokens (B, steps + 1) instead of the
+    argmax.  Returns (tokens, the last step's logits on the host, each
+    step's ms)."""
     import torch
     from repro_torch.parallel.sharding import (ShardingRules,
                                                batch_placements, distribute)
     from repro_torch.runtime import train_loop as TL
     b, s = prompts.shape
     cache_len = s + steps + 1
-    cache = model.init_cache(b, cache_len)
+    cache = model.init_cache(b, cache_len, model.cfg.adt)
     put = whole = (lambda t: t)
     if mesh is not None:
         rules = ShardingRules.default(mesh)
@@ -4103,6 +4122,87 @@ def _ep_capture():
     return orig, calls
 
 
+def _qmm_capture():
+    """Wrap ``quant_matmul._launch`` in this process: every launch's
+    operands and output, in order, for :func:`_qmm_bit_equal`."""
+    from repro_torch.kernels import quant_matmul as Q
+    orig, calls = Q._launch, []
+
+    def launch(xq, xs, wq, ws, splits=None):
+        out = orig(xq, xs, wq, ws, splits)
+        calls.append((xq, xs, wq, ws, out))
+        return out
+    Q._launch = launch
+    return orig, calls
+
+
+def _qmm_bit_equal(calls, what: str) -> dict:
+    """Each captured quant_matmul launch against ``int8_matmul_plain`` on
+    its operands (the rank-local shapes of the sharded model), bit for
+    bit, as phase 3 holds ``QMM_SHAPES``.  Returns {"M x K x N": n}."""
+    import torch
+    from repro_torch.kernels.quant_matmul import int8_matmul_plain
+    shapes = {}
+    for xq, xs, wq, ws, out in calls:
+        key = f"{xq.shape[0]} x {xq.shape[1]} x {wq.shape[0]}"
+        want = int8_matmul_plain(xq, xs, wq, ws)
+        if not torch.equal(out, want):
+            raise AssertionError(
+                f"{what}: quant_matmul at {key} differs from its plain "
+                f"version by {float((out - want).abs().max())}")
+        shapes[key] = shapes.get(key, 0) + 1
+    calls.clear()
+    return shapes
+
+
+@contextlib.contextmanager
+def _plain_attention():
+    """The unsharded model's decode attention through the plain masked
+    attention, which the mesh runs where ``model`` > 1, not flash_decode."""
+    import functools
+    from repro_torch.models import layers as L
+    orig = L._contiguous_attention_decode
+    L._contiguous_attention_decode = functools.partial(orig, kernel=False)
+    try:
+        yield
+    finally:
+        L._contiguous_attention_decode = orig
+
+
+@contextlib.contextmanager
+def _plain_ep_inputs(xs: list):
+    """Record the input of every ``moe_ffn_ep_plain`` call, in order."""
+    from repro_torch.models import layers as L
+    orig = L.moe_ffn_ep_plain
+
+    def wrapped(ctx, cfg, p, x, dp, tp):
+        xs.append(x)
+        return orig(ctx, cfg, p, x, dp, tp)
+    L.moe_ffn_ep_plain = wrapped
+    try:
+        yield
+    finally:
+        L.moe_ffn_ep_plain = orig
+
+
+def _flipped_rows(cfg, mesh_params, plain_params, calls, ref_xs):
+    """Batch rows (bool (B,)) in which some token's top-k experts in some
+    expert-parallel layer differ between the mesh run (``calls``) and
+    the reference run (``ref_xs``, in the same order), each routed by the
+    port's router on its own input."""
+    import torch
+    from repro_torch.models import layers as L
+    index = {id(b.moe): i for i, b in enumerate(mesh_params.blocks)}
+    flipped = None
+    for (p, _, x, _), rx in zip(calls, ref_xs, strict=True):
+        w = plain_params.blocks[index[id(p)]].moe.router
+        a, b = (L._router(cfg, w, t)[1].reshape(*t.shape[:2], -1)
+                .sort(-1).values for t in (x, rx))
+        rows = (a != b).flatten(1).any(1)
+        flipped = rows if flipped is None else flipped | rows
+    return flipped.cpu()
+
+
 def _ep_layers_bit_equal(cfg, model, mesh_params, plain_params, calls
                          ) -> int:
     """Rank 0: each captured expert-parallel layer against the plain
@@ -4125,12 +4225,98 @@ def _ep_layers_bit_equal(cfg, model, mesh_params, plain_params, calls
     return len(calls)
 
 
+@contextlib.contextmanager
+def _fp32_experts():
+    """``layers._expert_ffn`` without its bf16 operand rounding, for (b)'s
+    fp32 runs, on the mesh and in the reference alike: every product of
+    those runs is then fp32, and the two differ only by the order of
+    fp32 sums.  With the bf16 operands a sum's last bit can cross a bf16
+    rounding, and granite's 24 layers carry such steps to about 2 % of
+    the logits (one H100, 700 W)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import layers as L
+    orig = L._expert_ffn
+
+    def ffn(ctx, recv, wg, wu, wd):
+        wg, wu, wd = (w.to(recv.dtype) for w in (wg, wu, wd))
+        return torch.bmm(F.silu(torch.bmm(recv, wg)) * torch.bmm(recv, wu),
+                         wd)
+    L._expert_ffn = ffn
+    try:
+        yield
+    finally:
+        L._expert_ffn = orig
+
+
+def _ep_case(rank, arch, cfg, pol, c, mesh, params, plain_params, calls,
+             qmm_calls) -> dict:
+    """One (b) run of ``cfg`` under ``pol`` on the 1 x 2 mesh: the prefill
+    and ``c["steps"]`` greedy steps, the launches, every quant_matmul
+    launch against its plain version; on rank 0 each expert-parallel
+    layer against the plain function and the last logits against the
+    unsharded plain-EP model with the plain attention, fed the mesh's
+    tokens (:data:`EP_LOGITS_TOL`)."""
+    import torch
+    from repro_torch.launch.serve import serve_policy
+    from repro_torch.models import layers as L
+    from repro_torch.models.api import build_model
+    from repro_torch.quant.policy import PrecisionPolicy
+    if pol == "fp32":
+        pcfg = cfg.replace(act_dtype="float32")
+        policy = PrecisionPolicy(default="fp32")
+    else:
+        pcfg, policy = cfg, serve_policy(pol == "int8-mlp")
+    model = build_model(pcfg, policy, device="cuda", mesh=mesh)
+    prompts = _ep_prompts(cfg, c)
+    calls.clear()
+    qmm_calls.clear()
+    _zero_counts()
+    toks, lg, ms = _ep_decode(model, params, prompts, c["steps"], mesh)
+    counts, tc = _read_counts(), _read_tc_counts()
+    want = _mlp_linears(cfg) * (1 + c["steps"]) if pol == "int8-mlp" else 0
+    if (counts["quant_matmul"] != want or tc["quant_matmul"] != want
+            or any(v for k, v in counts.items() if k != "quant_matmul")):
+        raise AssertionError(f"phase 17 (b) {arch} {pol}: launches {counts}, "
+                             f"tc {tc}, want quant_matmul {want}")
+    r = {"step_ms": ms, "launches": counts,
+         "quant_matmul_tc": tc["quant_matmul"],
+         "quant_matmul_bit_equal": _qmm_bit_equal(
+             qmm_calls, f"phase 17 (b) {arch} {pol}"),
+         "ep_calls": len(calls), **c}
+    if rank == 0:
+        r["layers_bit_equal"] = _ep_layers_bit_equal(pcfg, model, params,
+                                                     plain_params, calls)
+        plain = build_model(pcfg, policy, device="cuda")
+        ref_xs = []
+        with L.plain_ep_routing(1, 2), _plain_attention(), \
+                _plain_ep_inputs(ref_xs):
+            rtoks, rlg, _ = _ep_decode(plain, plain_params, prompts,
+                                       c["steps"], force=toks[:, :-1])
+        qmm_calls.clear()
+        flipped = _flipped_rows(cfg, params, plain_params, calls, ref_xs)
+        calls.clear()
+        scale = float(rlg.abs().max())
+        share = (lg - rlg).abs().amax(-1) / scale
+        held = ~flipped if pol == "fp32" else torch.ones_like(flipped)
+        err = float(share[held].max()) if held.any() else math.inf
+        r.update(logits_max=scale, logits_share=err,
+                 row_shares=share.tolist(), rows_flipped=flipped.tolist(),
+                 tokens_equal=int((rtoks == toks).sum()),
+                 tokens=toks.numel())
+        if not err <= EP_LOGITS_TOL[pol]:
+            raise AssertionError(f"phase 17 (b) {arch} {pol}: logits {r}")
+    return r
+
+
 def _ep_worker_run(rank: int, d: Path) -> dict:
-    """(b) one of two gloo ranks on the one card, mesh 1 x 2."""
+    """(b) one of two gloo ranks on the one card, mesh 1 x 2: granite
+    whole under bf16 (both bodies) and fp32 (the all-to-all body), and
+    DeepSeek-V2 on 2 layers under bf16, int8-mlp and fp32."""
     import torch
     from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import quant_matmul as Q
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.launch.serve import serve_policy
     from repro_torch.models import layers as L
     from repro_torch.models.api import build_model
     from repro_torch.parallel.sharding import ShardingRules
@@ -4140,15 +4326,18 @@ def _ep_worker_run(rank: int, d: Path) -> dict:
     mesh = make_host_mesh(1, 2, "cuda")
     rules = ShardingRules.default(mesh)
     orig, calls = _ep_capture()
+    orig_qmm, qmm_calls = _qmm_capture()
+    plans = {EP_ARCH: [("bf16", EP_DECODE, "ep_fn"),
+                       ("bf16", EP_SMALL, "ep_small_fn"),
+                       ("fp32", EP_FP32, "ep_fn")],
+             "deepseek_v2_236b": [("bf16", EP_DEEPSEEK, "ep_fn"),
+                                  ("int8-mlp", EP_DEEPSEEK, "ep_fn"),
+                                  ("fp32", EP_DEEPSEEK_FP32, "ep_fn")]}
     try:
-        for arch in (EP_ARCH, "deepseek_v2_236b"):
+        for arch, plan in plans.items():
             cfg = get_config(arch)
-            pols = ("bf16",)
-            runs = [(EP_DECODE, "ep_fn"), (EP_SMALL, "ep_small_fn")]
             if cfg.use_mla:
                 cfg = cfg.replace(n_layers=EP_DEEPSEEK_LAYERS)
-                pols = ("bf16", "int8-mlp")
-                runs = [(EP_DEEPSEEK, "ep_fn")]
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             base = build_model(cfg, device="cuda", mesh=mesh)
@@ -4156,60 +4345,22 @@ def _ep_worker_run(rank: int, d: Path) -> dict:
                 base, rules, "sgd")["params"])
             torch.cuda.synchronize()
             rec = {"init_s": time.perf_counter() - t0, "runs": {}}
-            plain = plain_params = None
-            if rank == 0:
-                plain = build_model(cfg, device="cuda")
-                plain_params = plain.init(0)
-            for pol in pols:
-                policy = serve_policy(pol == "int8-mlp")
-                model = build_model(cfg, policy, device="cuda", mesh=mesh)
-                if plain is not None:
-                    plain = build_model(cfg, policy, device="cuda")
-                for c, body in runs:
-                    prompts = _ep_prompts(cfg, c)
-                    calls.clear()
-                    _zero_counts()
-                    toks, lg, ms = _ep_decode(model, params, prompts,
-                                              c["steps"], mesh)
-                    counts, tc = _read_counts(), _read_tc_counts()
-                    forwards = 1 + c["steps"]
-                    want = _mlp_linears(cfg) * forwards \
-                        if pol == "int8-mlp" else 0
-                    if (counts["quant_matmul"] != want
-                            or tc["quant_matmul"] != want
-                            or any(v for k, v in counts.items()
-                                   if k != "quant_matmul")):
-                        raise AssertionError(
-                            f"phase 17 (b) {arch} {pol}: launches {counts}, "
-                            f"tc {tc}, want quant_matmul {want}")
-                    r = {"step_ms": ms, "body": body, "launches": counts,
-                         "quant_matmul_tc": tc["quant_matmul"],
-                         "ep_calls": len(calls), **c}
-                    if rank == 0:
-                        r["layers_bit_equal"] = _ep_layers_bit_equal(
-                            cfg, model, params, plain_params, calls)
-                        calls.clear()
-                        with L.plain_ep_routing(1, 2):
-                            rtoks, rlg, _ = _ep_decode(
-                                plain, plain_params, prompts, c["steps"],
-                                force=toks[:, :-1])
-                        err = float((lg - rlg).abs().max())
-                        scale = float(rlg.abs().max())
-                        if not err <= EP_LOGITS_TOL * scale:
-                            raise AssertionError(
-                                f"phase 17 (b) {arch} {pol}: logits "
-                                f"{err} of {scale}")
-                        r.update(logits_max_err=err, logits_max=scale,
-                                 tokens_equal=int((rtoks == toks).sum()),
-                                 tokens=toks.numel())
-                    rec["runs"][f"{pol}/{body}"] = r
+            plain_params = build_model(cfg, device="cuda").init(0) \
+                if rank == 0 else None
+            for pol, c, body in plan:
+                with _fp32_experts() if pol == "fp32" \
+                        else contextlib.nullcontext():
+                    rec["runs"][f"{pol}/{body}"] = _ep_case(
+                        rank, arch, cfg, pol, c, mesh, params, plain_params,
+                        calls, qmm_calls)
             rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
             out[arch] = rec
-            del base, params, model, plain, plain_params
+            del base, params, plain_params
             calls.clear()
             torch.cuda.empty_cache()
     finally:
         L._moe_ep = orig
+        Q._launch = orig_qmm
     return out
 
 

@@ -200,16 +200,16 @@ def lower_cell(arch: str, shape: ShapeSpec, *, multi_pod: bool = False,
                remat: str | None = None,
                zero1: bool = False,
                policy_rules: list | None = None,
-               moe_fsdp_mode: str = "gather",
                cfg_overrides: dict | None = None,
                device: str = "meta"):
     """Returns (lowered, mesh, model, aux) — compile is the caller's call.
 
     Rank 0's arguments live on ``device``: ``"meta"`` for the dry run, or
     a card for :func:`execute_cell` (random weights from seed 0, a zero
-    cache).  The reference's ``donate`` has no counterpart (the port's
-    steps update their state in place); ``moe_fsdp_mode`` reaches the
-    model as the reference's does (stored, never read: ``models.common.Ctx``)."""
+    cache).  The reference's ``donate`` and ``moe_fsdp_mode`` have no
+    counterpart: the port's steps update their state in place, and its
+    expert parallelism gathers FSDP-sharded experts in both of the
+    reference's modes (``models/layers.py::_moe_ep``)."""
     if grad_compression:
         raise NotImplementedError("gradient compression on a mesh")
     cfg = get_config(arch)
@@ -230,7 +230,7 @@ def lower_cell(arch: str, shape: ShapeSpec, *, multi_pod: bool = False,
         policy = PrecisionPolicy(default="bf16", exempt=DEFAULT_EXEMPT,
                                  rules=[tuple(r) for r in policy_rules])
     model = build_model(cfg, policy, device=mesh_dev, mesh=mesh,
-                        fsdp_params=use_fsdp, moe_fsdp_mode=moe_fsdp_mode)
+                        fsdp_params=use_fsdp)
     specs = model.input_specs(shape)
     opt_name = "adamw" if shape.kind == "train" else "sgd"
     sshard = state_shardings(model, rules, opt_name, fsdp=use_fsdp,

@@ -82,12 +82,9 @@ class LMModel:
     policy: PrecisionPolicy | None = None
     mesh: Any = None
     fsdp_params: bool = False
-    moe_fsdp_mode: str = "gather"
 
     def ctx(self, decode: bool = False) -> Ctx:
-        return Ctx(policy=self.policy, decode=decode, mesh=self.mesh,
-                   fsdp_params=self.fsdp_params,
-                   moe_fsdp_mode=self.moe_fsdp_mode)
+        return Ctx(policy=self.policy, decode=decode, mesh=self.mesh)
 
     # ----------------------------------------------------- dry-run surface
     @functools.cached_property
@@ -244,14 +241,12 @@ MESH_FAMILIES = ("dense", "vlm", "moe")
 
 def build_model(cfg: ArchConfig, policy: PrecisionPolicy | None = None,
                 device: str | torch.device | None = None, *, mesh=None,
-                fsdp_params: bool = False,
-                moe_fsdp_mode: str = "gather") -> LMModel:
+                fsdp_params: bool = False) -> LMModel:
     """The model handle; with ``mesh`` its parameters are expected as
     DTensors on that mesh (``runtime/train_loop.py``).  A mesh takes the
     dense decoders and the MoE family (``layers._moe_ep`` over the
     ``model`` axis; MLA on DTensors); the SSM, hybrid and enc-dec
-    families raise on any mesh.  ``moe_fsdp_mode`` is stored as the
-    reference stores it and changes nothing (:class:`Ctx`)."""
+    families raise on any mesh."""
     if policy is None:
         policy = PrecisionPolicy(default="bf16", exempt=DEFAULT_EXEMPT)
     if mesh is not None and cfg.family not in MESH_FAMILIES:
@@ -260,5 +255,4 @@ def build_model(cfg: ArchConfig, policy: PrecisionPolicy | None = None,
             f"for ROADMAP Queue 1's slice 15 (the SSM, hybrid and enc-dec "
             f"families on a mesh)")
     return LMModel(cfg=cfg, device=resolve_device(device), policy=policy,
-                   mesh=mesh, fsdp_params=fsdp_params,
-                   moe_fsdp_mode=moe_fsdp_mode)
+                   mesh=mesh, fsdp_params=fsdp_params)

@@ -50,12 +50,6 @@ class Ctx:
     policy: PrecisionPolicy | None = None
     decode: bool = False
     mesh: Any = None
-    fsdp_params: bool = False        # FSDP-shard MoE expert weights
-    # the reference's knob, stored and never read: its "partial" variant
-    # (f-sharded experts, psum'd down projection) is commented out there
-    # as refuted, and its expert parallelism gathers the weights in both
-    # modes (models/layers.py::_moe_ep)
-    moe_fsdp_mode: str = "gather"
 
     def level_for(self, name: str) -> str:
         if self.policy is None:

@@ -1335,12 +1335,10 @@ def _moe_ep(ctx: Ctx, cfg: ArchConfig, p: MoE, x):
 
     Placements: ``x`` its batch rows over the data-parallel axes, whole
     over ``model``; the router whole; the experts' leading dim over
-    ``model`` (``e_loc = E / tp`` a rank), whole elsewhere.  With
-    ``ctx.fsdp_params`` the reference takes the expert weights
-    f-sharded over the data-parallel axes and gathers them inside its
-    body; here ``local_map`` gathers them on the way in, whatever their
-    FSDP placement (both ``moe_fsdp_mode`` values: the reference gathers
-    in both).  Each rank's body (:func:`_ep_small` picks one, from the
+    ``model`` (``e_loc = E / tp`` a rank), whole elsewhere; FSDP-sharded
+    experts are gathered on the way in (the reference's
+    ``moe_fsdp_mode`` has no effect there: it gathers in both modes).
+    Each rank's body (:func:`_ep_small` picks one, from the
     static token count of a data shard):
 
     - all-to-all (prefill, training): the rank's ``n_loc / tp`` token
