@@ -258,6 +258,29 @@ Phases, each printing one JSON line or more:
                decode_32k, DeepSeek-V2 decode_32k under FSDP.  Runs
                before phase 6, whose rows report its launch counts.
 
+18. mesh_families — the SSM, hybrid and enc-dec families on a mesh: (a)
+               zamba2-2.7b (54 layers, bf16 weights), xlstm-125m and
+               whisper-small (fp32 weights) whole on a real one-rank NCCL
+               mesh, a prefill of 8 x 128 (whisper: 8 x 1,500 stub frames
+               and a 4-token prompt) and 8 greedy steps under bf16 and
+               int8-mlp (xlstm fp32), tokens and last logits bit-equal to
+               the unsharded port, flash_decode 9 x 8 (zamba2, all
+               "ffma") and 12 x 8 (whisper, all "tc") a run, each int8-mlp
+               quant_matmul launch bit-equal to its plain version; then
+               3 trainer steps on depth cuts (zamba2 6 layers: one
+               hybrid_period, so the shared block runs; xlstm 2 pairs;
+               whisper 2 + 2) without and with gradient compression,
+               bit-equal to the unsharded trainer; (b) two gloo worker
+               processes sharing the card, mesh 1 x 2 (their output in
+               ``chiprun_out/mesh_families_workers.log``): zamba2 on 6
+               layers and whisper-small whole in fp32, a prefill and 4
+               steps, rank 0's last logits within 1e-4 of the largest of
+               the unsharded port's fed the same tokens; (c) the three
+               families' dry run on the host, rank 0 of the placeholder
+               16 x 16 at every applicable shape, each ``status: ok``,
+               in a process of its own while (a) and (b) run.  Runs
+               before phase 6, whose rows report its launch counts.
+
 Then one ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line, and the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises and
 the script exits non-zero.  Without a CUDA device, or without the
@@ -271,13 +294,14 @@ kernels and host ops — and over 16 contiguous decode steps under each
 policy) runs only when asked.
 
 Usage: ``python3 chip_smoke.py [--phases
-1,2,3,4,5,6,8,9,10,11,12,13,14,15,16,17[,7]] [--src DIR]``; ``--phases 1,2,9,10``
+1,2,3,4,5,6,8,9,10,11,12,13,14,15,16,17,18[,7]] [--src DIR]``; ``--phases 1,2,9,10``
 builds the kernels and drives the SERVE and durability paths alone,
 ``--phases 1,2,3,11`` the design flow with training, ``--phases 1,2,12``
 the MoE family, ``--phases 1,2,3,13`` the SSM and hybrid families,
 ``--phases 1,2,3,14`` the encoder-decoder family, ``--phases 1,2,3,15``
 the trainer, ``--phases 1,2,16`` distribution, ``--phases 1,2,17``
-expert parallelism.
+expert parallelism, ``--phases 1,2,18`` the SSM, hybrid and enc-dec
+families on a mesh.
 ``--src`` drives the ``repro_torch`` under another tree (e.g. the parent
 commit unpacked beside this one) with this script's phases; with
 ``--phases 1,6`` that times both commits' kernels with the same rows in one
@@ -3930,13 +3954,15 @@ EP_LOGITS_TOL = {"fp32": 1e-4, "bf16": 0.1, "int8-mlp": 0.1}
 EP_WORKER_TIMEOUT = 900
 
 
-def _ep_decode(model, params, prompts, steps, mesh=None, force=None):
+def _ep_decode(model, params, prompts, steps, mesh=None, force=None,
+               frames=None):
     """A prefill and ``steps`` greedy steps through ``make_prefill_step``
     / ``make_decode_step`` (on ``mesh``: the cache placed by the rules,
     inputs distributed, logits gathered), the cache in the activations'
-    dtype.  ``force``: feed these tokens (B, steps + 1) instead of the
-    argmax.  Returns (tokens, the last step's logits on the host, each
-    step's ms)."""
+    dtype; an enc-dec model's prefill also encodes ``frames``.
+    ``force``: feed these tokens (B, steps + 1) instead of the argmax.
+    Returns (tokens, the last step's logits on the host, each step's
+    ms)."""
     import torch
     from repro_torch.parallel.sharding import (ShardingRules,
                                                batch_placements, distribute)
@@ -3955,8 +3981,11 @@ def _ep_decode(model, params, prompts, steps, mesh=None, force=None):
 
         def whole(t):
             return t.full_tensor()
-    logits, cache = TL.make_prefill_step(model, cache_len)(
-        params, {"tokens": put(prompts.cuda())}, cache)
+    batch = {"tokens": put(prompts.cuda())}
+    if frames is not None:
+        batch["frames"] = put(frames.cuda())
+    logits, cache = TL.make_prefill_step(model, cache_len)(params, batch,
+                                                           cache)
     step = TL.make_decode_step(model)
     lg = whole(logits)[:, -1]
     tok = lg.argmax(-1, keepdim=True).int()
@@ -4364,9 +4393,10 @@ def _ep_worker_run(rank: int, d: Path) -> dict:
     return out
 
 
-def _ep_worker(rank: int, d: str) -> int:
-    """A (b) worker process: rank ``rank`` of a two-rank gloo group on the
-    one card; its report in ``d``."""
+def _ep_worker(rank: int, d: str, kind: str = "ep") -> int:
+    """A worker process of phase 17 (b) (``kind`` "ep") or phase 18 (b)
+    ("mf"): rank ``rank`` of a two-rank gloo group on the one card; its
+    report in ``d``."""
     import datetime
     import faulthandler
     import torch
@@ -4378,16 +4408,18 @@ def _ep_worker(rank: int, d: str) -> int:
                             rank=rank, world_size=2,
                             timeout=datetime.timedelta(seconds=600))
     try:
-        out = _ep_worker_run(rank, Path(d))
+        run = _mf_worker_run if kind == "mf" else _ep_worker_run
+        out = run(rank, Path(d))
     finally:
         dist.destroy_process_group()
     (Path(d) / f"rank{rank}.json").write_text(json.dumps(out))
     return 0
 
 
-def _ep_two_ranks(src: Path) -> dict:
-    """(b) two gloo processes sharing the card (NCCL refuses two ranks on
-    one device), mesh 1 x 2: each rank's report."""
+def _ep_two_ranks(src: Path, kind: str = "ep") -> dict:
+    """(b) of phase 17 (``kind`` "ep") or 18 ("mf"): two gloo processes
+    sharing the card (NCCL refuses two ranks on one device), mesh 1 x 2:
+    each rank's report."""
     import shutil
     import subprocess
     import tempfile
@@ -4395,7 +4427,8 @@ def _ep_two_ranks(src: Path) -> dict:
     try:
         procs = [subprocess.Popen(
             [sys.executable, str(Path(__file__).resolve()), "--src",
-             str(src), "--ep-rank", str(r), "--ep-dir", str(d)],
+             str(src), "--ep-rank", str(r), "--ep-dir", str(d),
+             "--worker", kind],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
             for r in range(2)]
         logs = []
@@ -4406,11 +4439,14 @@ def _ep_two_ranks(src: Path) -> dict:
                 if p.poll() is None:
                     p.kill()
                     p.wait()
-        (OUT / "ep_workers.log").write_text("\n".join(
+        log = "ep_workers.log" if kind == "ep" else \
+            "mesh_families_workers.log"
+        (OUT / log).write_text("\n".join(
             f"== rank {r} rc {p.returncode}\n{o}\n{e}" for r, (p, (o, e))
             in enumerate(zip(procs, logs))))
+        phase = "17" if kind == "ep" else "18"
         if any(p.returncode for p in procs):
-            raise AssertionError(f"phase 17 (b): workers exited "
+            raise AssertionError(f"phase {phase} (b): workers exited "
                                  f"{[p.returncode for p in procs]}: "
                                  f"{logs[0][1][-2000:]} {logs[1][1][-2000:]}")
         return {r: json.loads((d / f"rank{r}.json").read_text())
@@ -4488,6 +4524,378 @@ def phase_ep(src: Path) -> dict:
     emit({"phase": "ep", "part": "c", "mesh": "16x16", "cells": dry,
           "wall_s": time.perf_counter() - t1})
     emit({"phase": "ep_done", "launches": launches,
+          "wall_s": time.perf_counter() - t0})
+    return launches
+
+
+# ---------------------------------------------------------------- phase 18
+MF_ARCHS = ("zamba2_2p7b", "xlstm_125m", "whisper_small")
+# (a): each run's traffic — 8 x 128-token prompts and 8 greedy steps;
+# whisper 8 x 1,500 stub frames and a 4-token prompt (phase 14's)
+MF_DECODE = {"zamba2_2p7b": dict(batch=8, prompt_len=128, steps=8),
+             "xlstm_125m": dict(batch=8, prompt_len=128, steps=8),
+             "whisper_small": dict(batch=8, prompt_len=4, steps=8)}
+MF_POLICIES = {"zamba2_2p7b": ("bf16", "int8-mlp"), "xlstm_125m": ("fp32",),
+               "whisper_small": ("bf16", "int8-mlp")}
+# (a)'s trainer, on depth cuts: zamba2 one hybrid_period (6 Mamba2
+# layers and one application of the shared block; 2 layers would leave it
+# out), xlstm 2 mLSTM/sLSTM pairs, whisper 2 + 2 layers
+MF_TRAIN_CUTS = {"zamba2_2p7b": dict(n_layers=6),
+                 "xlstm_125m": dict(n_layers=4),
+                 "whisper_small": dict(n_layers=2, n_enc_layers=2)}
+MF_TRAIN = dict(batch=8, seq_len=128, steps=3)
+# (b): two gloo ranks on the card, mesh 1 x 2, fp32 activations and
+# products; prompt + steps + 1 cache slots even, so that the rules put the
+# self-attention caches' sequence over ``model`` (the softmax combined
+# across ranks)
+MF_TWO = {"zamba2_2p7b": dict(batch=8, prompt_len=127, steps=4, n_layers=6),
+          "whisper_small": dict(batch=8, prompt_len=5, steps=4)}
+# (b): rank 0's last logits against the unsharded port's (the plain
+# attention, as the mesh runs it there), fed the same tokens, as a share
+# of the largest |logit|
+MF_LOGITS_TOL = 1e-4
+MF_WORKER_TIMEOUT = 900
+MF_DRYRUN_TIMEOUT = 900
+
+
+def _mf_policy(cfg, pol: str):
+    """(config, policy) of a run: fp32 activations and products, or the
+    served bf16 / int8-mlp policy."""
+    from repro_torch.launch.serve import serve_policy
+    from repro_torch.quant.policy import PrecisionPolicy
+    if pol == "fp32":
+        return (cfg.replace(act_dtype="float32"),
+                PrecisionPolicy(default="fp32"))
+    return cfg, serve_policy(pol == "int8-mlp")
+
+
+def _mf_frames(cfg, batch: int):
+    from repro_torch.launch.whisper_serve import stub_frames
+    return stub_frames(batch, cfg.n_frames, cfg.d_model) \
+        if cfg.enc_dec else None
+
+
+def _mf_qmm_want(cfg, steps: int) -> int:
+    """quant_matmul launches of a prefill and ``steps`` decode steps
+    under int8-mlp: every ``mlp/…`` product a forward, and an enc-dec
+    model's encoder MLPs once."""
+    enc = (3 if cfg.mlp == "glu" else 2) * cfg.n_enc_layers \
+        if cfg.enc_dec else 0
+    return _mlp_linears(cfg) * (1 + steps) + enc
+
+
+def _mf_decode_one_rank(arch: str) -> tuple[dict, dict]:
+    """(a) ``arch`` whole on the one-rank NCCL mesh under each of its
+    policies: a prefill and greedy steps through ``make_prefill_step`` /
+    ``make_decode_step``, tokens and last logits bit-equal to the
+    unsharded port's from the same weights, the launches counted on the
+    mesh's run alone and every quant_matmul launch bit-equal to
+    ``int8_matmul_plain`` on its operands."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import quant_matmul as Q
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.parallel.sharding import ShardingRules
+    from repro_torch.runtime import train_loop as TL
+    cfg, c = get_config(arch), MF_DECODE[arch]
+    prompts = _ep_prompts(cfg, c)
+    frames = _mf_frames(cfg, c["batch"])
+    mesh = make_host_mesh(1, 1, "cuda")
+    rules = ShardingRules.default(mesh)
+    t0 = time.perf_counter()
+    plain_params = build_model(cfg, device="cuda").init(0)
+    base = build_model(cfg, device="cuda", mesh=mesh)
+    params = TL.shard_params(base.init(0), TL.state_shardings(
+        base, rules, "sgd")["params"])
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0, "runs": {}}
+    launches = {}
+    orig_qmm, qmm_calls = _qmm_capture()
+    try:
+        for pol in MF_POLICIES[arch]:
+            pcfg, policy = _mf_policy(cfg, pol)
+            plain = build_model(pcfg, policy, device="cuda")
+            ref_toks, ref_lg, plain_ms = _ep_decode(
+                plain, plain_params, prompts, c["steps"], frames=frames)
+            model = build_model(pcfg, policy, device="cuda", mesh=mesh)
+            qmm_calls.clear()
+            _zero_counts()
+            toks, lg, ms = _ep_decode(model, params, prompts, c["steps"],
+                                      mesh, frames=frames)
+            counts, tc = _read_counts(), _read_tc_counts()
+            what = f"phase 18 (a) {cfg.name} {pol}"
+            if not (torch.equal(toks, ref_toks) and torch.equal(lg, ref_lg)):
+                raise AssertionError(
+                    f"{what}: the 1 x 1 mesh differs from the unsharded "
+                    f"port: {int((toks != ref_toks).sum())} tokens, logits "
+                    f"{float((lg - ref_lg).abs().max())}")
+            fd = _attn_layers(pcfg) * c["steps"]
+            fd_tc = fd if pcfg.enc_dec else 0  # zamba2's D = 80: "ffma"
+            qmm = _mf_qmm_want(pcfg, c["steps"]) if pol == "int8-mlp" else 0
+            want = {k: 0 for k in counts}
+            want.update(flash_decode=fd, quant_matmul=qmm)
+            if (counts != want or tc.get("flash_decode", 0) != fd_tc
+                    or tc.get("quant_matmul", 0) != qmm):
+                raise AssertionError(f"{what}: launches {counts}, tc {tc}, "
+                                     f"want {want}, flash_decode tc {fd_tc}")
+            out["runs"][pol] = {
+                "bit_equal": True, "launches": counts, "launches_tc": tc,
+                "quant_matmul_bit_equal": _qmm_bit_equal(qmm_calls, what),
+                "mesh_step_ms": ms, "plain_step_ms": plain_ms, **c}
+            for k in ("flash_decode", "quant_matmul"):
+                launches[k] = launches.get(k, 0) + counts[k]
+            del plain, model
+    finally:
+        Q._launch = orig_qmm
+    del plain_params, params, base
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def _mf_state_equal(a: dict, b: dict) -> list:
+    """The leaves of two train states (plain and 1 x 1 DTensors) whose
+    bits differ: parameters, moments and residuals."""
+    import torch
+    from repro_torch.optim.optimizers import tree_leaves
+
+    def leaves(st):
+        out = {"params": tree_leaves(st["params"].param_tree(
+            per_block=True))}
+        out.update({f"opt/{k}": tree_leaves(v) for k, v in st["opt"].items()
+                    if k != "step"})
+        if "residuals" in st:
+            out["residuals"] = tree_leaves(st["residuals"])
+        return out
+    la, lb = leaves(a), leaves(b)
+    differ = [k for k in la if len(la[k]) != len(lb.get(k, ()))]
+    for k in la:
+        for i, (x, y) in enumerate(zip(la[k], lb.get(k, ()))):
+            y = y.to_local() if hasattr(y, "to_local") else y
+            if not torch.equal(x, y):
+                differ.append(f"{k}[{i}]")
+    return differ
+
+
+def _mf_train(arch: str) -> dict:
+    """(a) :data:`MF_TRAIN` steps of ``make_train_step`` (AdamW on the
+    cosine schedule, clipping) on the depth cut of ``arch``, unsharded and
+    on the one-rank mesh, without and with gradient compression (the
+    residuals placed like the parameters): losses and the final states
+    bit for bit."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import ShardedBatcher, TokenSource
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.optimizers import adamw, cosine_schedule
+    from repro_torch.parallel.sharding import ShardingRules
+    from repro_torch.runtime import train_loop as TL
+    cfg = get_config(arch).replace(**MF_TRAIN_CUTS[arch])
+    c = MF_TRAIN
+    src = TokenSource(cfg.vocab_size, c["batch"], c["seq_len"],
+                      frames=(cfg.n_frames, cfg.d_model) if cfg.enc_dec
+                      else None)
+    mesh = make_host_mesh(1, 1, "cuda")
+    rules = ShardingRules.default(mesh)
+    out = {"reduced": MF_TRAIN_CUTS[arch], **c}
+    for comp in (False, True):
+        opt = adamw(cosine_schedule(3e-4, 10, c["steps"]))
+        runs = {}
+        for name, m in (("plain", None), ("mesh", mesh)):
+            model = build_model(cfg, device="cuda", mesh=m)
+            state = TL.init_train_state(model, opt, 0, grad_compression=comp)
+            if m is not None:
+                state = TL.shard_state(state, TL.state_shardings(
+                    model, rules, "adamw"))
+            step = TL.make_train_step(model, opt, grad_compression=comp)
+            batcher = ShardedBatcher(src, rules if m is not None else None,
+                                     prefetch=False, device="cuda")
+            losses, ms = [], []
+            for i in range(c["steps"]):
+                batch = batcher.get(i)
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch)
+                losses.append(float(metrics["loss"]))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            runs[name] = (losses, state, ms)
+        differ = _mf_state_equal(runs["plain"][1], runs["mesh"][1])
+        if differ or runs["plain"][0] != runs["mesh"][0]:
+            raise AssertionError(
+                f"phase 18 (a) {cfg.name} trainer (compression {comp}): "
+                f"losses {runs['plain'][0]} / {runs['mesh'][0]}, leaves "
+                f"that differ {differ[:20]}")
+        out["compressed" if comp else "uncompressed"] = {
+            "bit_equal": True, "losses": runs["mesh"][0],
+            "mesh_step_ms": runs["mesh"][2],
+            "plain_step_ms": runs["plain"][2]}
+        del runs, state, model
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mf_worker_run(rank: int, d: Path) -> dict:
+    """(b) one of two gloo ranks on the one card, mesh 1 x 2: zamba2 on 6
+    layers and whisper-small whole, fp32 (:data:`MF_TWO`), a prefill and
+    greedy steps; on rank 0 the last logits against the unsharded port's
+    fed the same tokens (:data:`MF_LOGITS_TOL`)."""
+    import torch
+    from repro_torch.checkpoint.manager import _flatten
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.parallel.sharding import ShardingRules
+    from repro_torch.runtime import train_loop as TL
+    out = {"probe": _gloo_cuda_probe(rank)}
+    _c10d_all_gather()
+    mesh = make_host_mesh(1, 2, "cuda")
+    rules = ShardingRules.default(mesh)
+    for arch, c in MF_TWO.items():
+        cfg, policy = _mf_policy(get_config(arch), "fp32")
+        if "n_layers" in c:
+            cfg = cfg.replace(n_layers=c["n_layers"])
+        torch.cuda.reset_peak_memory_stats()
+        model = build_model(cfg, policy, device="cuda", mesh=mesh)
+        params = TL.shard_params(model.init(0), TL.state_shardings(
+            model, rules, "sgd")["params"])
+        cache = TL.cache_shardings(model, rules, c["batch"],
+                                   c["prompt_len"] + c["steps"] + 1)
+        prompts = _ep_prompts(cfg, c)
+        frames = _mf_frames(cfg, c["batch"])
+        toks, lg, ms = _ep_decode(model, params, prompts, c["steps"], mesh,
+                                  frames=frames)
+        rec = {"step_ms": ms, "peak_gb": torch.cuda.max_memory_allocated()
+               / 1e9, "cache_placements": {
+                   k: str(v.placements) for k, v in _flatten(cache).items()},
+               **c}
+        if rank == 0:
+            plain = build_model(cfg, policy, device="cuda")
+            with _plain_attention():
+                rtoks, rlg, _ = _ep_decode(plain, plain.init(0), prompts,
+                                           c["steps"], force=toks[:, :-1],
+                                           frames=frames)
+            scale = float(rlg.abs().max())
+            share = float((lg - rlg).abs().max()) / scale
+            rec.update(logits_max=scale, logits_share=share,
+                       tokens_equal=int((rtoks == toks).sum()),
+                       tokens=toks.numel())
+            if not share <= MF_LOGITS_TOL:
+                raise AssertionError(f"phase 18 (b) {cfg.name}: logits {rec}")
+            del plain
+        out[arch] = rec
+        del model, params
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mf_dryrun_cells(path: str) -> int:
+    """(c), in a process of its own (the placeholder world is its default
+    process group): rank 0 of the placeholder 16 x 16 for each family at
+    every shape, Lower → Compile → Roofline; the cells into ``path``."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.dryrun import run_cell
+    cells = {}
+    for arch in ("xlstm-125m", "zamba2-2.7b", "whisper-small"):
+        for shape in SHAPES:
+            t0 = time.perf_counter()
+            rec = run_cell(arch, shape, verbose=False)
+            r = rec.get("roofline")
+            cells[f"{arch}/{shape}"] = {"status": rec["status"],
+                                        "host_s": time.perf_counter() - t0,
+                                        **({} if r is None else {
+                "compute_ms": r["compute_s"] * 1e3,
+                "memory_ms": r["memory_s"] * 1e3,
+                "collective_ms": r["collective_s"] * 1e3,
+                "dominant": r["dominant"],
+                "tflop_per_chip": r["hlo_flops_per_chip"] / 1e12,
+                "gb_per_chip": r["hlo_bytes_per_chip"] / 1e9,
+                "collective_counts": r["collective_counts"],
+                "collective_bytes": r["collective_bytes_by_kind"],
+                "arg_gb": r["memory"]["argument_bytes"] / 1e9,
+                "peak_gb": r["memory"]["peak_bytes"] / 1e9,
+                "fits": r["fits_hbm"], "fallbacks": rec["fallbacks"]}),
+                **({"reason": rec["reason"]} if "reason" in rec else {}),
+                **({"error": rec["error"]} if "error" in rec else {})}
+    Path(path).write_text(json.dumps(cells))
+    return 0
+
+
+def _mf_dryrun_start(src: Path, path: Path):
+    import subprocess
+    return subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--src", str(src),
+         "--mf-dryrun", str(path)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def _mf_dryrun_wait(proc, path: Path) -> dict:
+    try:
+        _, err = proc.communicate(timeout=MF_DRYRUN_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode:
+        raise AssertionError(f"phase 18 (c): the dry run exited "
+                             f"{proc.returncode}: {err[-2000:]}")
+    cells = json.loads(path.read_text())
+    bad = {k: v for k, v in cells.items() if v["status"] != "ok"
+           and not (v["status"] == "skipped"
+                    and k == "whisper-small/long_500k")}
+    if bad:
+        raise AssertionError(f"phase 18 (c): cells not ok: {bad}")
+    return cells
+
+
+def phase_mesh_families(src: Path) -> dict:
+    """Phase 18, the SSM, hybrid and enc-dec families on a mesh: (a)
+    zamba2-2.7b, xlstm-125m and whisper-small whole on a one-rank NCCL
+    mesh, decode bit-equal to the unsharded port with its launches, and
+    the trainer on depth cuts with and without gradient compression bit
+    for bit; (b) two gloo ranks on the card, mesh 1 x 2, zamba2 on 6
+    layers and whisper whole in fp32 against the unsharded port; (c) the
+    three families' dry run on the placeholder 16 x 16 at every shape,
+    in a process of its own while (a) and (b) run.  Returns (a)'s
+    launches on the mesh."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mf_"))
+    dry = _mf_dryrun_start(src, tmp / "dryrun.json")
+    try:
+        _one_rank_world()
+        try:
+            one, launches = {}, {}
+            for arch in MF_ARCHS:
+                t1 = time.perf_counter()
+                rec, got = _mf_decode_one_rank(arch)
+                for k, v in got.items():
+                    launches[k] = launches.get(k, 0) + v
+                rec["train"] = _mf_train(arch)
+                rec["wall_s"] = time.perf_counter() - t1
+                one[arch] = rec
+        finally:
+            dist.destroy_process_group()
+        torch.cuda.empty_cache()
+        emit({"phase": "mesh_families", "part": "a", "mesh": "1x1",
+              "archs": one, "launches": launches,
+              "wall_s": time.perf_counter() - t0})
+        t1 = time.perf_counter()
+        two = _ep_two_ranks(src, "mf")
+        emit({"phase": "mesh_families", "part": "b", "mesh": "1x2",
+              "ranks": two, "wall_s": time.perf_counter() - t1})
+        t1 = time.perf_counter()
+        cells = _mf_dryrun_wait(dry, tmp / "dryrun.json")
+        emit({"phase": "mesh_families", "part": "c", "mesh": "16x16",
+              "cells": cells, "wait_s": time.perf_counter() - t1})
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "mesh_families_done", "launches": launches,
           "wall_s": time.perf_counter() - t0})
     return launches
 
@@ -5142,7 +5550,7 @@ def _row(name, source, replaces, launches, err, tol, kernel, plain, lib,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,8,9,10,11,12,13,14,15,16,17",
+                    default="1,2,3,4,5,6,8,9,10,11,12,13,14,15,16,17,18",
                     help="comma-separated phases to run (default: all "
                          "but 7)")
     ap.add_argument("--src", default=str(ROOT / "src"),
@@ -5151,8 +5559,12 @@ def main(argv=None) -> int:
                          "--phases 1,6 times its kernels with this "
                          "script's rows")
     ap.add_argument("--ep-rank", type=int, default=None,
-                    help=argparse.SUPPRESS)   # phase 17 (b)'s workers
+                    help=argparse.SUPPRESS)   # phase 17/18 (b)'s workers
     ap.add_argument("--ep-dir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--worker", default="ep", choices=("ep", "mf"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--mf-dryrun", default=None,
+                    help=argparse.SUPPRESS)   # phase 18 (c)'s process
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     try:
@@ -5175,7 +5587,9 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.ep_rank is not None:
-        return _ep_worker(args.ep_rank, args.ep_dir)
+        return _ep_worker(args.ep_rank, args.ep_dir, args.worker)
+    if args.mf_dryrun is not None:
+        return _mf_dryrun_cells(args.mf_dryrun)
     t0 = time.perf_counter()
     (OUT / "chip_smoke.jsonl").unlink(missing_ok=True)
     phase_s = {}        # each phase's wall seconds, for the done line
@@ -5202,6 +5616,7 @@ def main(argv=None) -> int:
     train_launches = run(15, phase_train, default={})
     dist_launches = run(16, phase_dist, default={})
     ep_launches = run(17, phase_ep, src, default={})
+    mf_launches = run(18, phase_mesh_families, src, default={})
     flow_launches, durable_launches = {}, {}
     if 9 in phases or 10 in phases:
         model = params = None
@@ -5229,6 +5644,7 @@ def main(argv=None) -> int:
         row["train_launches"] = train_launches.get(row["name"], 0)
         row["dist_launches"] = dist_launches.get(row["name"], 0)
         row["ep_launches"] = ep_launches.get(row["name"], 0)
+        row["mesh_families_launches"] = mf_launches.get(row["name"], 0)
     run(7, phase_profile)
     emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 3),
           "phase_s": phase_s})

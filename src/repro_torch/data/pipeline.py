@@ -6,7 +6,11 @@
   ``step`` through ``np.random.default_rng(step)`` — so a restart from
   checkpoint step k reproduces batch k exactly (the data state of
   fault-tolerant training is the step counter), and both packages draw
-  the same integers for every step.
+  the same integers for every step.  With ``frames`` (an enc-dec
+  model's ``(n_frames, d_model)``) a batch also carries stub
+  conv-frontend embeddings, ``0.1 · N(0, 1)`` in fp32 drawn after the
+  tokens from the same generator (the JAX package's pipeline has none,
+  so its launcher cannot train whisper).
 - :class:`ShardedBatcher` places host batches on the model's device,
   prefetching one batch ahead on a thread; with ``rules`` each rank
   places its rows of the global batch as a DTensor sharded on batch over
@@ -31,10 +35,12 @@ class TokenSource:
     """Deterministic step → batch mapping over a synthetic token stream."""
 
     def __init__(self, vocab: int, batch: int, seq_len: int,
-                 n_tokens: int = 1 << 20, seed: int = 0):
+                 n_tokens: int = 1 << 20, seed: int = 0,
+                 frames: tuple[int, int] | None = None):
         self.vocab = vocab
         self.batch = batch
         self.seq_len = seq_len
+        self.frames = frames
         self.stream = lm_tokens(n_tokens, vocab, seed)
         self.n_windows = (len(self.stream) - 1) // seq_len
 
@@ -45,7 +51,11 @@ class TokenSource:
         toks = np.stack([self.stream[s:s + self.seq_len] for s in starts])
         labels = np.stack([self.stream[s + 1:s + 1 + self.seq_len]
                            for s in starts])
-        return {"tokens": toks, "labels": labels}
+        out = {"tokens": toks, "labels": labels}
+        if self.frames is not None:
+            out["frames"] = (rng.standard_normal((self.batch, *self.frames))
+                             * 0.1).astype(np.float32)
+        return out
 
     def __iter__(self) -> Iterator[dict[str, np.ndarray]]:
         step = 0
@@ -57,7 +67,8 @@ class TokenSource:
 class ShardedBatcher:
     """Places host batches on ``device`` — the model's; CUDA unless the
     caller names another — as int64 tensors holding the integers of
-    :meth:`TokenSource.batch_at`, one batch ahead on a thread with
+    :meth:`TokenSource.batch_at` (fp32 frames as they are), one batch
+    ahead on a thread with
     ``prefetch``.  With ``rules`` (``parallel/sharding.py``) a batch is a
     DTensor on ``rules.mesh``, its rows sharded by the ``batch`` rule
     (replicated where they do not divide); this rank copies only its
@@ -74,16 +85,18 @@ class ShardedBatcher:
         self._thread: threading.Thread | None = None
 
     def _place(self, batch: dict[str, np.ndarray]) -> dict:
+        def host(v):
+            t = torch.from_numpy(v)
+            return t if t.is_floating_point() else t.long()
         if self.rules is None:
-            return {k: torch.from_numpy(v).long().to(self.device)
-                    for k, v in batch.items()}
+            return {k: host(v).to(self.device) for k, v in batch.items()}
         from torch.distributed.tensor import DTensor
         out = {}
         for k, v in batch.items():
             sh = self.rules.sharding_for(("batch",) + (None,) * (v.ndim - 1),
                                          v.shape)
-            rows = local_slice(torch.from_numpy(v), sh.mesh, sh.placements)
-            out[k] = DTensor.from_local(rows.long().to(self.device), sh.mesh,
+            rows = local_slice(host(v), sh.mesh, sh.placements)
+            out[k] = DTensor.from_local(rows.to(self.device), sh.mesh,
                                         sh.placements, run_check=False)
         return out
 

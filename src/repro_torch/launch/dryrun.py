@@ -206,12 +206,13 @@ def lower_cell(arch: str, shape: ShapeSpec, *, multi_pod: bool = False,
 
     Rank 0's arguments live on ``device``: ``"meta"`` for the dry run, or
     a card for :func:`execute_cell` (random weights from seed 0, a zero
-    cache).  The reference's ``donate`` and ``moe_fsdp_mode`` have no
-    counterpart: the port's steps update their state in place, and its
-    expert parallelism gathers FSDP-sharded experts in both of the
-    reference's modes (``models/layers.py::_moe_ep``)."""
-    if grad_compression:
-        raise NotImplementedError("gradient compression on a mesh")
+    cache).  With ``grad_compression`` a train cell's state carries the
+    fp32 residuals, placed like the parameters and counted among the
+    arguments, as the reference's.  The reference's ``donate`` and
+    ``moe_fsdp_mode`` have no counterpart: the port's steps update their
+    state in place, and its expert parallelism gathers FSDP-sharded
+    experts in both of the reference's modes
+    (``models/layers.py::_moe_ep``)."""
     cfg = get_config(arch)
     if remat is not None:
         cfg = cfg.replace(remat=remat)
@@ -250,7 +251,11 @@ def lower_cell(arch: str, shape: ShapeSpec, *, multi_pod: bool = False,
                "v": place(f32, sshard["opt"]["v"])}
         state = {"params": params, "opt": opt}
         args += _dtensors(opt)
+        if grad_compression:
+            state["residuals"] = place(f32, sshard["params"])
+            args += _dtensors(state["residuals"])
         step_fn = make_train_step(model, adamw(3e-4),
+                                  grad_compression=grad_compression,
                                   microbatches=microbatches)
 
         def run():
@@ -281,6 +286,8 @@ def lower_cell(arch: str, shape: ShapeSpec, *, multi_pod: bool = False,
         batch = _real_tree(batch, device)
         if shape.kind == "train":
             state["opt"] = _real_tree(state["opt"], device)
+            if grad_compression:
+                state["residuals"] = _real_tree(state["residuals"], device)
         elif shape.kind == "decode":
             cache = _real_tree(cache, device)
         args = None

@@ -10,10 +10,14 @@ once on ``meta`` tensors — one rank's shards of a placeholder world —
 under :class:`DryRunCounter`, which sees each rank-local op:
 
 - FLOPs: ``torch.utils.flop_counter``'s formulas per op (the port's
-  ``repro_torch::matmul`` and ``repro_torch::int8_matmul`` as 2·M·K·N);
+  ``repro_torch::matmul`` and ``repro_torch::int8_matmul`` as 2·M·K·N;
+  the sLSTM time loop ``repro_torch::slstm_scan`` as its recurrent
+  products, 2·B·S·4·H·dh², and its backward as three times that: the
+  recompute and the two products of each step's gradient);
 - bytes accessed: each op's input tensors read once and output tensors
   written once, view and metadata ops free — the traffic of the port's
-  unfused op-by-op execution, an upper bound on a fused program's;
+  unfused op-by-op execution, an upper bound on a fused program's (the
+  sLSTM loop, one op, counts its inputs and outputs only);
 - collective bytes: the operand bytes of each functional collective
   (all-gather: its input; reduce-scatter: its input, the reference's
   result × group; all-reduce and all-to-all: the operand); the counts
@@ -81,6 +85,12 @@ def _mm_flops(func, args) -> float | None:
     if name.endswith("repro_torch.int8_matmul"):
         xq, wq = args[0], args[2]
         return 2.0 * xq.numel() * wq.shape[0]
+    if name.endswith("repro_torch.slstm_scan"):
+        wx, r = args[0], args[1]          # (B, S, 4, H, dh), (4, H, dh, dh)
+        return 2.0 * wx.numel() * r.shape[-1]
+    if name.endswith("repro_torch.slstm_scan_backward"):
+        wx, r = args[0], args[1]
+        return 3 * 2.0 * wx.numel() * r.shape[-1]
     return None
 
 

@@ -11,12 +11,16 @@ deterministic data pipeline, atomic async checkpoints, restarts from the
 newest committed step after an injected node failure, and int8 gradient
 compression with error feedback.
 
-Without ``--mesh`` the model trains on one device with plain tensors.
+Every registry config trains, an enc-dec one (whisper) on batches that
+carry stub frames (``data/pipeline.py``; the JAX launcher has none and
+stops there).  Without ``--mesh`` the model trains on one device with
+plain tensors.
 ``--mesh DxM`` trains on a ("data", "model") device mesh, clamped to the
 world as the reference's ``make_host_mesh`` clamps it to the local
 devices: parameters, moments and batches are DTensors placed by the
-logical-axis rules (``parallel/sharding.py``), checkpoints keep the JAX
-layout.  The world comes from the usual ``RANK``/``WORLD_SIZE``/
+logical-axis rules (``parallel/sharding.py``; with
+``--grad-compression`` the residuals like the parameters), checkpoints
+keep the JAX layout.  The world comes from the usual ``RANK``/``WORLD_SIZE``/
 ``MASTER_ADDR``/``MASTER_PORT`` environment (gloo on the CPU, NCCL on
 the card; ``LOCAL_RANK`` picks the card), or from a default process group
 the caller already started; with neither (no ``WORLD_SIZE``) the world
@@ -102,7 +106,9 @@ def main(argv=None):
                             device=device, mesh=mesh)
         if mesh is not None:
             shardings = state_shardings(model, rules, "adamw")
-        source = TokenSource(cfg.vocab_size, args.batch, args.seq_len)
+        source = TokenSource(cfg.vocab_size, args.batch, args.seq_len,
+                             frames=(cfg.n_frames, cfg.d_model)
+                             if cfg.enc_dec else None)
         batcher = ShardedBatcher(source, rules, device=model.device)
         ckpt_dir = args.ckpt_dir
         if ckpt_dir is None:

@@ -14,7 +14,9 @@ embeddings, for ``loss`` and ``prefill``; its prefill encodes them once
 into the cache's cross K/V.  The precision policy lives on the
 model, not on the parameters, so one parameter set serves under several
 policies.  It runs on CUDA unless the caller passes ``device="cpu"``; on
-a machine without a card a CUDA model raises at construction.
+a machine without a card a CUDA model raises at construction.  With
+``mesh`` every family runs on DTensors (``runtime/train_loop.py`` places
+the parameters, batches and caches by the logical-axis rules).
 """
 
 from __future__ import annotations
@@ -234,25 +236,19 @@ class LMModel:
         return T.lm_apply(ctx, self.cfg, params, tokens, cache=cache)
 
 
-# the families whose forward runs on DTensors: the dense decoders and
-# the MoE family (GQA or MLA attention, expert-parallel FFN)
-MESH_FAMILIES = ("dense", "vlm", "moe")
-
-
 def build_model(cfg: ArchConfig, policy: PrecisionPolicy | None = None,
                 device: str | torch.device | None = None, *, mesh=None,
                 fsdp_params: bool = False) -> LMModel:
     """The model handle; with ``mesh`` its parameters are expected as
-    DTensors on that mesh (``runtime/train_loop.py``).  A mesh takes the
-    dense decoders and the MoE family (``layers._moe_ep`` over the
-    ``model`` axis; MLA on DTensors); the SSM, hybrid and enc-dec
-    families raise on any mesh."""
+    DTensors on that mesh (``runtime/train_loop.py``).  A mesh takes
+    every family: the dense decoders; the MoE family (``layers._moe_ep``
+    over the ``model`` axis where it divides the experts; MLA on
+    DTensors); the SSM and hybrid mixers as data-parallel ``local_map`` calls
+    (``models/ssm.py``), zamba2's shared block and whisper's
+    attention, cross-attention among it, through ``layers.attention``.
+    A mesh serves from the contiguous cache only (the paged cache
+    raises there)."""
     if policy is None:
         policy = PrecisionPolicy(default="bf16", exempt=DEFAULT_EXEMPT)
-    if mesh is not None and cfg.family not in MESH_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family on a device mesh waits "
-            f"for ROADMAP Queue 1's slice 15 (the SSM, hybrid and enc-dec "
-            f"families on a mesh)")
     return LMModel(cfg=cfg, device=resolve_device(device), policy=policy,
                    mesh=mesh, fsdp_params=fsdp_params)

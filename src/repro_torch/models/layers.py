@@ -34,6 +34,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import math
+import types
 
 import torch
 import torch.nn.functional as F
@@ -297,8 +298,8 @@ def attention(ctx: Ctx, cfg: ArchConfig, p: Attention, x, positions,
     ``positions``: (S,) or per-request (R, S) absolute query positions.
     """
     if ctx.mesh is not None and is_dtensor(x):
-        # a mesh takes the decoder-only families: no cross-attention
-        return _mesh_attention(ctx, cfg, p, x, positions, cache, causal)
+        return _mesh_attention(ctx, cfg, p, x, positions, cache, causal,
+                               kv_override)
     b, s, _ = x.shape
     h, hd = cfg.n_heads, cfg.hd
     if kv_override is not None:
@@ -371,17 +372,59 @@ def _local(ctx: Ctx, fn, placements: tuple, out: tuple, *args,
                      redistribute_inputs=True)(*args)
 
 
+def _on_rows(ctx: Ctx, fn, weights: dict, x, state: dict | None = None):
+    """``fn(w, x, state) -> (y, state)``, a function on plain tensors, on
+    each rank's batch rows of the DTensor ``x`` (``local_map``): the
+    DTensor ``weights`` (name → parameter) gathered whole and passed as a
+    namespace ``w``; ``state`` (a layer's DTensor views into a stacked
+    cache, or None) redistributed to the rank's rows, whole over the
+    other axes.  ``fn`` writes the new state into those temporaries;
+    they come back as outputs and each rank copies its shard into the
+    cache in place, which keeps the rules' placements.  The weights'
+    gradients leave partial over the axes that split the rows and reach
+    their placements through DTensor.  Returns (y, state)."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = ctx.mesh
+    rows = batch_placements(mesh, rows=x.shape[0])
+    whole = (Replicate(),) * mesh.ndim
+    wgrad = tuple(Partial() if pl != Replicate() else pl for pl in rows)
+    names = list(weights)
+    keys = [] if state is None else list(state)
+
+    def body(xl, *args):
+        w = types.SimpleNamespace(**dict(zip(names, args[:len(names)])))
+        ls = None if state is None else dict(zip(keys, args[len(names):]))
+        y, ls = fn(w, xl, ls)
+        return (y, *(ls[k] for k in keys))
+
+    outs = local_map(
+        body, out_placements=(rows,) * (1 + len(keys)),
+        in_placements=(rows,) + (whole,) * len(names) + (rows,) * len(keys),
+        in_grad_placements=(rows,) + (wgrad,) * len(names)
+        + (rows,) * len(keys), device_mesh=mesh, redistribute_inputs=True)(
+        x, *weights.values(), *(state[k] for k in keys))
+    for k, t in zip(keys, outs[1:]):
+        state[k].copy_(t.redistribute(mesh, state[k].placements))
+    return outs[0], state
+
+
 def _mesh_attention(ctx: Ctx, cfg: ArchConfig, p: Attention, x, positions,
-                    cache, causal):
+                    cache, causal, kv_override=None):
     """:func:`attention` on DTensors: the projections are sharded products
     (``linear``), the attention itself runs on each rank's batch rows and
     heads (:func:`_heads_placements`, ``local_map``), and ``wo``'s
     row-parallel product sums the heads' parts.  The contiguous cache is
     a DTensor placed by the rules (``cache_shardings``); its sequence may
-    be sharded over ``model`` (:func:`_mesh_decode`).  The paged cache
-    serves on one device only."""
+    be sharded over ``model`` (:func:`_mesh_decode`).  Cross-attention
+    (``kv_override``, :func:`_mesh_cross`) attends DTensor K/V.  The
+    paged cache serves on one device only."""
     b, s, _ = x.shape
     h, hd = cfg.n_heads, cfg.hd
+    if kv_override is not None:
+        out = _mesh_cross(ctx, cfg, _q(ctx, cfg, p, x), kv_override,
+                          positions)
+        return linear(ctx, "attn/wo", out.reshape(b, s, h * hd), p.wo), cache
     pl = _heads_placements(ctx, cfg, b)
     if cache is not None and "k_pages" in cache:
         raise NotImplementedError("the paged cache serves on one device; "
@@ -418,6 +461,25 @@ def _mesh_attention(ctx: Ctx, cfg: ArchConfig, p: Attention, x, positions,
             cache = {"k": cache["k"], "v": cache["v"], "pos": s}
     y = linear(ctx, "attn/wo", out.reshape(b, s, h * hd), p.wo)
     return y, cache
+
+
+def _mesh_cross(ctx: Ctx, cfg: ArchConfig, q, kv_override, positions):
+    """Cross-attention on DTensors: the DTensor K/V (B, F, KV, hd) of
+    ``kv_override`` — the cache's ``cross_k``/``cross_v`` at the rules'
+    placements (``frames`` whole; ``kv_heads`` over ``model`` where they
+    divide), or the projection of the encoder's output — attended at
+    their own placements, each rank on its batch rows and the matching
+    query heads (:func:`_cache_layout`).  Never causal, never roped:
+    chunked MEA over the frames, as off the mesh."""
+    k, v, kv_pos = kv_override
+    cpl, qpl, _ = _cache_layout(ctx, cfg, k)
+
+    def cross(q, k, v):
+        h = q.shape[2]                  # the heads this rank holds
+        return mea_attention(q, _expand_kv(k, h), _expand_kv(v, h),
+                             positions, kv_pos, causal=False,
+                             chunk=cfg.attn_chunk, bf16_operands=cfg.mea_bf16)
+    return _local(ctx, cross, (qpl, cpl, cpl), qpl, q, k, v)
 
 
 def _cache_layout(ctx: Ctx, cfg: ArchConfig, ck) -> tuple:
@@ -1042,7 +1104,10 @@ def moe_ffn(ctx: Ctx, cfg: ArchConfig, p: MoE, x):
     - On a mesh (DTensors) with a ``model`` axis whose size divides the
       experts — a 1 x 1 mesh among them — the expert-parallel
       :func:`_moe_ep` (capacity, bf16 expert products), as the reference
-      takes ``_moe_ep`` whenever its mesh has that axis.
+      takes ``_moe_ep`` whenever its mesh has that axis; on any other
+      mesh, where the reference runs ``_moe_dense_reference`` on the
+      mesh, :func:`_moe_routed` on each rank's batch rows over the
+      experts gathered whole (:func:`_on_rows`).
     - Off a mesh the reference's ``_moe_dense_reference`` multiplies
       every token through every expert in fp32 and weights the results
       by a combine matrix that is zero outside the token's top-k; here
@@ -1060,10 +1125,12 @@ def moe_ffn(ctx: Ctx, cfg: ArchConfig, p: MoE, x):
     if ctx.mesh is not None and is_dtensor(x):
         tp = axis_sizes(ctx.mesh).get("model")
         if tp is None or cfg.n_experts % tp:
-            raise NotImplementedError(
-                f"{cfg.name}: {cfg.n_experts} experts over a model axis of "
-                f"{tp}: expert parallelism needs the axis to divide them")
-        y = _moe_ep(ctx, cfg, p, x)
+            y, _ = _on_rows(ctx, lambda w, xl, _: (_moe_routed(
+                cfg, w, xl, MOE_ROW_BLOCK if xl.is_cuda else None), None),
+                {n: p.get_parameter(n) for n in
+                 ("router", "w_gate", "w_up", "w_down")}, x)
+        else:
+            y = _moe_ep(ctx, cfg, p, x)
     elif _plain_ep is not None:
         y = moe_ffn_ep_plain(ctx, cfg, p, x, *_plain_ep)
     else:

@@ -27,10 +27,21 @@ States follow the port's cache convention: a mixer called with a
 new arrays.  A prefill (``ctx.decode`` false) with a state leaves the
 decode handoff there: the last ``ssm_conv - 1`` *pre-conv* inputs cast to
 the conv state's dtype and the final recurrent state.
+
+On a device mesh (DTensor inputs) each mixer is data-parallel
+(:func:`_mixer_on_rows`): from its input projection to its output
+projection it runs as the function above on each rank's batch rows, on
+plain tensors, with its weights gathered whole — the reference's
+function under its sharding rules.  A fused projection such as Mamba2's
+``in_proj`` (z | x | B | C | dt, its columns over ``model``) would not
+split along its shards, and the sLSTM's time loop pays no DTensor
+dispatch.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import math
 import types
 
@@ -40,7 +51,8 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import Ctx, _gelu_tanh, linear, rmsnorm
-from repro_torch.models.layers import _param, _weight
+from repro_torch.models.layers import _on_rows, _param, _weight
+from repro_torch.parallel.sharding import is_dtensor
 
 NEG_INF = -1e30
 M0 = -1e9                   # the mLSTM stabiliser's start
@@ -62,6 +74,17 @@ def _copy_state(state: dict, new: dict) -> dict:
     for name, t in new.items():
         state[name].copy_(t)
     return state
+
+
+def _mixer_on_rows(ctx: Ctx, apply, cfg: ArchConfig, p: nn.Module, x,
+                   state):
+    """``apply`` (a mixer) on a mesh: on each rank's batch rows of the
+    DTensor ``x`` with every parameter of ``p`` gathered whole, the state
+    written back at its placements (:func:`layers._on_rows`); the mixer
+    itself runs off the mesh, on plain tensors."""
+    return _on_rows(ctx, functools.partial(
+        apply, dataclasses.replace(ctx, mesh=None), cfg),
+        dict(p.named_parameters()), x, state)
 
 
 # =====================================================================
@@ -161,7 +184,9 @@ def mamba2_apply(ctx: Ctx, cfg: ArchConfig, p: Mamba2, x: torch.Tensor,
     Train/prefill: chunked SSD (:func:`_ssd_chunked`); with a ``state``
     the decode handoff is written into it.  Decode (``ctx.decode`` and a
     state): the recurrent single step over x (B,1,d), the state updated
-    in place."""
+    in place.  On a mesh: :func:`_mixer_on_rows`."""
+    if ctx.mesh is not None and is_dtensor(x):
+        return _mixer_on_rows(ctx, mamba2_apply, cfg, p, x, state)
     b, s, _ = x.shape
     d_in, nh, n, hd = mamba2_dims(cfg)
     proj = linear(ctx, "ssm/in_proj", x, p.in_proj)
@@ -311,7 +336,10 @@ def _weak_scalar(v: float, dtype: torch.dtype) -> float:
 
 def mlstm_apply(ctx: Ctx, cfg: ArchConfig, p: MLSTM, x: torch.Tensor,
                 state: dict | None = None):
-    """mLSTM block.  Returns (y, state); the state is updated in place."""
+    """mLSTM block.  Returns (y, state); the state is updated in place.
+    On a mesh: :func:`_mixer_on_rows`."""
+    if ctx.mesh is not None and is_dtensor(x):
+        return _mixer_on_rows(ctx, mlstm_apply, cfg, p, x, state)
     b, s, d = x.shape
     h = cfg.n_heads
     d_in = 2 * d
@@ -502,7 +530,10 @@ def slstm_apply(ctx: Ctx, cfg: ArchConfig, p: SLSTM, x: torch.Tensor,
 
     Decoding (``ctx.decode`` and a state) continues from the state;
     otherwise the carry starts at h = c = 0, n = 1, m = 0 even when a
-    state is given, and the state receives the final carry."""
+    state is given, and the state receives the final carry.  On a mesh
+    (:func:`_mixer_on_rows`) the loop runs on each rank's plain tensors."""
+    if ctx.mesh is not None and is_dtensor(x):
+        return _mixer_on_rows(ctx, slstm_apply, cfg, p, x, state)
     b, s, d = x.shape
     h = cfg.n_heads
     dh = d // h
@@ -511,33 +542,13 @@ def slstm_apply(ctx: Ctx, cfg: ArchConfig, p: SLSTM, x: torch.Tensor,
     r = p.r.float()
 
     if state is not None and ctx.decode:
-        hp, cp, np_, mp = (state[k] for k in ("h", "c", "n", "m"))
+        carry = tuple(state[k] for k in ("h", "c", "n", "m"))
     else:
-        hp = cp = torch.zeros((b, h, dh), dtype=torch.float32,
-                              device=x.device)
-        np_ = torch.ones_like(hp)
-        mp = torch.zeros_like(hp)
-    ys = []
-    for t in range(s):
-        wx_t = wx[:, t]                                       # (B,4,H,dh)
-        # rec[g,b,h,j] = sum_i r[g,h,i,j] h[b,h,i]
-        rec = torch.matmul(hp[None, :, :, None, :], r[:, None])[..., 0, :]
-        zt = torch.tanh(wx_t[:, 0] + rec[0])
-        it = wx_t[:, 1] + rec[1]
-        ft = wx_t[:, 2] + rec[2]
-        ot = torch.sigmoid(wx_t[:, 3] + rec[3])
-        logf = F.logsigmoid(ft)
-        m_new = torch.maximum(logf + mp, it)
-        ip = torch.exp(it - m_new)
-        fp = torch.exp(logf + mp - m_new)
-        cp = fp * cp + ip * zt
-        np_ = fp * np_ + ip
-        hp = ot * cp / torch.clamp(np_, min=1e-6)
-        mp = m_new
-        ys.append(hp)
+        hp = torch.zeros((b, h, dh), dtype=torch.float32, device=x.device)
+        carry = (hp, hp, torch.ones_like(hp), hp)
+    yh, *carry = torch.ops.repro_torch.slstm_scan(wx, r, *carry)
     if state is not None:
-        state = _copy_state(state, {"h": hp, "c": cp, "n": np_, "m": mp})
-    yh = torch.stack(ys, dim=1)                               # (B,S,H,dh)
+        state = _copy_state(state, dict(zip(("h", "c", "n", "m"), carry)))
     # per-head group norm (population variance)
     mu = yh.mean(dim=-1, keepdim=True)
     var = yh.var(dim=-1, keepdim=True, unbiased=False)
@@ -549,6 +560,145 @@ def slstm_apply(ctx: Ctx, cfg: ArchConfig, p: SLSTM, x: torch.Tensor,
     f1, f2 = ff.chunk(2, dim=-1)
     ffh = (_gelu_tanh(f1.float()) * f2.float()).to(x.dtype)
     return y + linear(ctx, "slstm/w_ff_down", ffh, p.w_ff_down), state
+
+
+def _slstm_step(wx_t, r, hp, cp, np_, mp):
+    """One sLSTM step from the carry (h, c, n, m) (B, H, dh) over ``wx_t``
+    (B, 4, H, dh) with the block-diagonal recurrent weights ``r`` (4, H,
+    dh, dh): (the new carry, the gates (z, i, f, o, log f) and the
+    stabilised input and forget weights), fp32."""
+    # rec[g,b,h,j] = sum_i r[g,h,i,j] h[b,h,i]
+    rec = torch.matmul(hp[None, :, :, None, :], r[:, None])[..., 0, :]
+    zt = torch.tanh(wx_t[:, 0] + rec[0])
+    it = wx_t[:, 1] + rec[1]
+    ft = wx_t[:, 2] + rec[2]
+    ot = torch.sigmoid(wx_t[:, 3] + rec[3])
+    logf = F.logsigmoid(ft)
+    m_new = torch.maximum(logf + mp, it)
+    ip = torch.exp(it - m_new)
+    fp = torch.exp(logf + mp - m_new)
+    c_new = fp * cp + ip * zt
+    n_new = fp * np_ + ip
+    h_new = ot * c_new / torch.clamp(n_new, min=1e-6)
+    return (h_new, c_new, n_new, m_new), (zt, it, ft, ot, logf, ip, fp)
+
+
+def _slstm_loop(wx, r, *carry):
+    """The sLSTM recurrence over the S steps of ``wx`` (B, S, 4, H, dh)
+    from ``carry`` (h, c, n, m): (ys (B, S, H, dh), h, c, n, m)."""
+    ys = []
+    for t in range(wx.shape[1]):
+        carry, _ = _slstm_step(wx[:, t], r, *carry)
+        ys.append(carry[0])
+    return (torch.stack(ys, dim=1), *carry)
+
+
+def _slstm_bptt(wx, r, h, c, n, m, gys, gh, gc, gn, gm):
+    """The gradients of :func:`_slstm_loop`'s outputs with respect to
+    ``wx`` and ``r``, back through time: the carries recomputed forward,
+    then each step recomputed from its carry and differentiated in
+    reverse with autograd's formulas (a tie of ``maximum`` splits the
+    gradient in halves; ``clamp`` passes it where ``n >= 1e-6``).
+    fp32."""
+    kept = [(h, c, n, m)]
+    for t in range(wx.shape[1] - 1):
+        kept.append(_slstm_step(wx[:, t], r, *kept[-1])[0])
+    gwx = torch.empty_like(wx)
+    gr = torch.zeros_like(r)
+    dh, dc, dn, dm = gh, gc, gn, gm
+    for t in range(wx.shape[1] - 1, -1, -1):
+        hp, cp, np_, mp = kept[t]
+        (_, c_new, n_new, m_new), (zt, it, ft, ot, logf, ip, fp) = \
+            _slstm_step(wx[:, t], r, hp, cp, np_, mp)
+        q = torch.clamp(n_new, min=1e-6)
+        # h = o * c / q
+        dh = dh + gys[:, t]
+        do = dh * c_new / q
+        dc = dc + dh * ot / q
+        dn = dn + torch.where(n_new >= 1e-6, -dh * ot * c_new / (q * q), 0.0)
+        # c = fp * c_prev + ip * z ; n = fp * n_prev + ip
+        dfp = dc * cp + dn * np_
+        dip = dc * zt + dn
+        dz = dc * ip
+        dc, dn = dc * fp, dn * fp
+        # ip = exp(i - m), fp = exp(a - m) with a = log f + m_prev
+        di = dip * ip
+        da = dfp * fp
+        dm = dm - di - da
+        # m = maximum(a, i)
+        a = logf + mp
+        tie = a == it
+        da = da + torch.where(tie, dm / 2, torch.where(a > it, dm, 0.0))
+        di = di + torch.where(tie, dm / 2, torch.where(it > a, dm, 0.0))
+        dm = da                                       # ∂ m_prev
+        dpre = torch.stack([dz * (1 - zt * zt), di,
+                            da * torch.sigmoid(-ft),  # ∂ log sigmoid(f)
+                            do * ot * (1 - ot)], dim=1)       # (B,4,H,dh)
+        gwx[:, t] = dpre
+        # rec = h_prev @ r: both products of its gradient
+        dpg = dpre.transpose(0, 1)                            # (4,B,H,dh)
+        gr += torch.einsum("bhi,gbhj->ghij", hp, dpg)
+        dh = torch.einsum("gbhj,ghij->bhi", dpg, r)
+    return gwx, gr
+
+
+# The time loop is one op, ``repro_torch::slstm_scan``, as the reference's
+# ``lax.scan`` is one loop: a mesh runs it on each rank's plain tensors,
+# autograd records one node a layer (its backward, back through time,
+# recomputes the loop: a rematerialised scan), and the dry run counts it
+# from its shapes on ``meta`` tensors (``launch/roofline.py``) rather than
+# dispatching S steps of about 20 ops each — 32,768 a layer at
+# prefill_32k.
+@torch.library.custom_op("repro_torch::slstm_scan", mutates_args=())
+def _slstm_scan(wx: torch.Tensor, r: torch.Tensor, h: torch.Tensor,
+                c: torch.Tensor, n: torch.Tensor, m: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor, torch.Tensor]:
+    """:func:`_slstm_loop`."""
+    return _slstm_loop(wx, r, h, c, n, m)
+
+
+@_slstm_scan.register_fake
+def _(wx, r, h, c, n, m):
+    b, s, _, nh, dh = wx.shape
+    return (wx.new_empty((b, s, nh, dh)), *(t.new_empty(t.shape)
+                                            for t in (h, c, n, m)))
+
+
+@torch.library.custom_op("repro_torch::slstm_scan_backward",
+                         mutates_args=())
+def _slstm_scan_backward(wx: torch.Tensor, r: torch.Tensor, h: torch.Tensor,
+                         c: torch.Tensor, n: torch.Tensor, m: torch.Tensor,
+                         gys: torch.Tensor, gh: torch.Tensor,
+                         gc: torch.Tensor, gn: torch.Tensor,
+                         gm: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(∂wx, ∂r): :func:`_slstm_bptt`."""
+    return _slstm_bptt(wx, r, h, c, n, m, gys, gh, gc, gn, gm)
+
+
+@_slstm_scan_backward.register_fake
+def _(wx, r, h, c, n, m, gys, gh, gc, gn, gm):
+    return wx.new_empty(wx.shape), r.new_empty(r.shape)
+
+
+def _slstm_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _slstm_grad(ctx, gys, gh, gc, gn, gm):
+    """(∂wx, ∂r); the start carry takes no gradient (a constant in
+    training; the cached paths run without autograd)."""
+    wx, r, h, c, n, m = ctx.saved_tensors
+    gs = [torch.zeros_like(t) if g is None else g
+          for g, t in zip((gys, gh, gc, gn, gm),
+                          (wx[:, :, 0], h, c, n, m))]
+    gwx, gr = torch.ops.repro_torch.slstm_scan_backward(wx, r, h, c, n, m,
+                                                        *gs)
+    return gwx, gr, None, None, None, None
+
+
+_slstm_scan.register_autograd(_slstm_grad, setup_context=_slstm_setup)
 
 
 SLSTM_STATE_AXES = {k: ("batch", "heads", None) for k in ("h", "c", "n", "m")}

@@ -323,14 +323,14 @@ def xlstm_block_apply(ctx: Ctx, cfg: ArchConfig, p: XLSTMBlock, x,
     x = x + y
     y, _ = S.slstm_apply(ctx, cfg, p.slstm, norm_apply(cfg.norm, p.norm_s, x),
                          sc)
-    return x + y, cache
+    return shard_hidden(ctx, x + y), cache
 
 
 def mamba_block_apply(ctx: Ctx, cfg: ArchConfig, p: MambaBlock, x,
                       positions, cache):
     y, cache = S.mamba2_apply(ctx, cfg, p.mixer,
                               norm_apply(cfg.norm, p.norm, x), cache)
-    return x + y, cache
+    return shard_hidden(ctx, x + y), cache
 
 
 def _layer(tree: dict, i: int) -> dict:
@@ -640,11 +640,26 @@ def init_encdec(gen: torch.Generator, cfg: ArchConfig) -> EncDec:
     return EncDec(cfg, gen.device, gen)
 
 
+def _like_x(x, t):
+    """``t`` (a sinusoid table's rows, on the model's device) as a
+    replicated DTensor on ``x``'s mesh when ``x`` is a DTensor — every
+    rank holds the same table — so that the two add; else ``t``."""
+    if not is_dtensor(x):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = x.device_mesh
+    return DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim,
+                              run_check=False)
+
+
 def encdec_encode(ctx: Ctx, cfg: ArchConfig, params: EncDec, frames):
     """frames: (B, S, d) precomputed conv-frontend embeddings, S <=
-    n_frames.  Returns the encoder's output (B, S, d)."""
+    n_frames.  Returns the encoder's output (B, S, d).  On a mesh the
+    activations keep their batch rows (``shard_hidden``) between
+    blocks."""
     s = frames.shape[1]
-    x = frames.to(cfg.adt) + params.enc_pos[:s].to(cfg.adt)
+    x = frames.to(cfg.adt)
+    x = shard_hidden(ctx, x + _like_x(x, params.enc_pos[:s].to(cfg.adt)))
     positions = torch.arange(s, device=frames.device)
     block_apply = _remat(cfg, _enc_block_apply)
     for blk in params.enc_blocks:
@@ -658,7 +673,7 @@ def _enc_block_apply(ctx: Ctx, cfg: ArchConfig, blk: Block, x, positions):
                        causal=False)
     x = x + a
     h = norm_apply(cfg.norm, blk.mlp_norm, x)
-    return x + L.mlp(ctx, cfg, blk.mlp, h)
+    return shard_hidden(ctx, x + L.mlp(ctx, cfg, blk.mlp, h))
 
 
 def _dec_block_apply(ctx: Ctx, cfg: ArchConfig, blk: DecBlock, x, positions,
@@ -672,7 +687,7 @@ def _dec_block_apply(ctx: Ctx, cfg: ArchConfig, blk: DecBlock, x, positions,
                        kv_override=(ck, cv, frame_pos))
     x = x + a
     h = norm_apply(cfg.norm, blk.mlp_norm, x)
-    return x + L.mlp(ctx, cfg, blk.mlp, h), sc
+    return shard_hidden(ctx, x + L.mlp(ctx, cfg, blk.mlp, h)), sc
 
 
 def encdec_decode(ctx: Ctx, cfg: ArchConfig, params: EncDec, tokens,
@@ -687,16 +702,19 @@ def encdec_decode(ctx: Ctx, cfg: ArchConfig, params: EncDec, tokens,
     a decode call attends it at its ``pos`` (flash_decode for one
     token).  Positions index the decoder's ``n_frames * 32``-row sinusoid
     table clamped to its last row, as the JAX package's gather clamps an
-    out-of-range index."""
+    out-of-range index.  On a mesh (DTensor tokens and parameters) the
+    cache and the cross K/V are DTensors placed by the rules, and the
+    activations keep their batch rows between blocks."""
     ecfg = _enc_cfg(cfg)
-    x = params.embed[tokens].to(cfg.adt)
+    x = _embed(params.embed, tokens).to(cfg.adt)
     s = tokens.shape[1]
     dev = x.device
     positions = torch.arange(s, device=dev)
     if cache is not None and ctx.decode:
         positions = int(cache["self"]["pos"][0]) + positions
     table = params.dec_pos
-    x = x + table[positions.clamp(max=table.shape[0] - 1)].to(cfg.adt)
+    x = shard_hidden(ctx, x + _like_x(x, table[positions.clamp(
+        max=table.shape[0] - 1)].to(cfg.adt)))
     frame_pos = torch.arange(cfg.n_frames, device=dev)
     new_pos = []
     block_apply = _remat(cfg, _dec_block_apply)
@@ -741,10 +759,14 @@ def encode_cross_kv(ctx: Ctx, cfg: ArchConfig, params: EncDec, frames,
                     cache: dict) -> None:
     """Encode ``frames`` once and write each decoder layer's
     cross-attention K/V of the encoder's output into ``cache``'s
-    ``cross_k``/``cross_v`` in place, cast to the cache's dtype."""
+    ``cross_k``/``cross_v`` in place, cast to the cache's dtype.  A
+    DTensor cache keeps its placements: each rank writes its shard of the
+    K/V, redistributed to them, into its part of the stack."""
     ecfg = _enc_cfg(cfg)
     enc_out = encdec_encode(ctx, cfg, params, frames)
     for i, blk in enumerate(params.dec_blocks):
-        k, v = L._kv(ctx, ecfg, blk.cross, enc_out)
-        cache["cross_k"][i] = k
-        cache["cross_v"][i] = v
+        for dst, t in zip((cache["cross_k"][i], cache["cross_v"][i]),
+                          L._kv(ctx, ecfg, blk.cross, enc_out)):
+            if is_dtensor(dst):
+                t = t.redistribute(dst.device_mesh, dst.placements)
+            dst.copy_(t)

@@ -39,8 +39,12 @@ before the parameter takes it back in its own.  A MoE model's experts
 sit over ``model`` (the ``experts`` rule; ``fsdp`` shards another of
 their dims over the data axes): their gradients leave the
 expert-parallel layer partial over the data axes only, so the
-reduction to their placements never crosses ``model``.  The MLA cache is placed like the GQA one
-(``cache_seq`` over ``model``).
+reduction to their placements never crosses ``model``.  The MLA cache
+is placed like the GQA one (``cache_seq`` over ``model``); the SSM
+states by their own axes (``ssm_inner``, ``ssm_heads``, ``heads``).
+Gradient compression runs on the reduced gradients, the residuals placed
+like the parameters (:func:`with_residuals`): a leaf's absmax is a max
+over its shards, the reference's one scale per stacked leaf.
 """
 
 from __future__ import annotations
@@ -167,16 +171,24 @@ def place(tree, shardings):
     return distribute(tree, shardings.mesh, shardings.placements)
 
 
+def with_residuals(shardings: dict) -> dict:
+    """``shardings`` (:func:`state_shardings`) with the gradient
+    compression residuals' entry: placed like the parameters, as the
+    reference's dry run places them."""
+    return dict(shardings, residuals=shardings["params"])
+
+
 def shard_state(state: dict, shardings: dict) -> dict:
     """A train state drawn whole on every rank (one seed) as DTensors:
     parameters and moments placed by ``shardings``
-    (:func:`state_shardings`)."""
+    (:func:`state_shardings`), the residuals like the parameters."""
     shard_params(state["params"], shardings["params"])
     opt = state["opt"]
     state["opt"] = dict(opt, **{k: place(opt[k], shardings["opt"][k])
                                 for k in opt if k != "step"})
     if "residuals" in state:
-        raise NotImplementedError("gradient compression on a mesh")
+        state["residuals"] = place(state["residuals"],
+                                   with_residuals(shardings)["residuals"])
     return state
 
 
@@ -231,10 +243,10 @@ def make_train_step(model: LMModel, optimizer: Optimizer,
             p.requires_grad_(True)
         loss, metrics, grads = compute_grads(params, leaves, batch)
         if is_dtensor(leaves[0]):
-            if grad_compression:
-                raise NotImplementedError("gradient compression on a mesh")
             # partial sums over the batch shards reduced, to each
-            # parameter's placements (all-reduce or reduce-scatter)
+            # parameter's placements (all-reduce or reduce-scatter); the
+            # compression below then takes each leaf's absmax over its
+            # shards, one scale a stacked leaf as off the mesh
             grads = [g.redistribute(p.device_mesh, p.placements)
                      for g, p in zip(grads, leaves)]
         # the old residuals and moments are dropped from ``state`` before
@@ -365,8 +377,12 @@ def train_loop(model: LMModel, *, steps: int, batcher,
     :class:`NodeFailure` restarts from the last checkpoint — the
     deterministic data pipeline replays the same batches.  With
     ``shardings`` (:func:`state_shardings`, the model on their mesh) the
-    state is sharded, and a restore reads each rank's shards."""
+    state is sharded, and a restore reads each rank's shards (with
+    ``grad_compression`` the residuals too, placed like the
+    parameters)."""
     resolve_device(model.device)     # a CUDA model needs a card
+    if shardings is not None and grad_compression:
+        shardings = with_residuals(shardings)
     optimizer = optimizer or adamw(cosine_schedule(3e-4, 10, steps))
     train_step = make_train_step(model, optimizer,
                                  grad_compression=grad_compression)

@@ -483,15 +483,13 @@ def test_launch_train_mesh_2x2_equals_1x1(ranks, tmp_path, capsys):
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_mesh_refusals_by_family(arch):
-    """A mesh takes the dense decoders and the MoE family (GQA and MLA,
-    experts over ``model``); the SSM, hybrid and enc-dec families refuse
-    any mesh, naming the slice that brings them (a shape-only mesh: the
-    check reads its sizes)."""
+    """A mesh takes every family — the dense decoders, the MoE family
+    (GQA and MLA), the SSM, hybrid and enc-dec families — and refuses
+    none (a shape-only mesh: building reads its sizes only); the
+    refusals left are the paged cache's and a cache sequence over two
+    mesh axes (``models/layers.py``)."""
     cfg = get_config(arch)
     mesh = S.MeshShape(("data", "model"), (2, 2))
-    if cfg.family in ("dense", "vlm", "moe"):
-        assert cfg.family in tapi.MESH_FAMILIES
-        assert tapi.build_model(cfg, device="cpu", mesh=mesh).mesh is mesh
-        return
-    with pytest.raises(NotImplementedError, match="slice 15"):
-        tapi.build_model(cfg, device="cpu", mesh=mesh)
+    model = tapi.build_model(cfg, device="cpu", mesh=mesh)
+    assert model.mesh is mesh and model.ctx().mesh is mesh
+    assert not hasattr(tapi, "MESH_FAMILIES")

@@ -426,7 +426,8 @@ def test_launch_train_main_restarts_once(tmp_path, capsys):
 def test_mesh_clamps_as_jax_and_a_mesh_waits(tmp_path, capsys):
     """--mesh is clamped to the devices there are, as the reference's
     make_host_mesh clamps it; under a process group the clamped mesh
-    trains (it no longer waits)."""
+    trains (it no longer waits), an SSM config with --grad-compression
+    too."""
     from repro.launch.mesh import make_host_mesh
     n = len(jax.devices())
     for data, model in [(1, 1), (2, 4), (4, 1), (3, 3)]:
@@ -447,3 +448,21 @@ def test_mesh_clamps_as_jax_and_a_mesh_waits(tmp_path, capsys):
         dist.destroy_process_group()
     out = capsys.readouterr().out
     assert json.loads(out[out.index("{"):])["mesh"] == [1, 1]
+    # an SSM config on the mesh with gradient compression: xlstm-smoke on
+    # the one-rank world (the four-rank run: tests/
+    # test_torch_mesh_families.py)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store2",
+                            rank=0, world_size=1)
+    try:
+        tlaunch.main(["--arch", "xlstm_125m", "--smoke", "--device", "cpu",
+                      "--mesh", "2x2", "--grad-compression", "--steps", "2",
+                      "--batch", "2", "--seq-len", "16",
+                      "--ckpt-dir", str(tmp_path / "ckpt_xlstm")])
+    finally:
+        dist.destroy_process_group()
+    out = capsys.readouterr().out
+    report = json.loads(out[out.index("{"):])
+    assert report["mesh"] == [1, 1] and report["arch"] == "xlstm-smoke"
+    assert report["steps_run"] == 2 and np.isfinite(report["final_loss"])
+    assert "residuals" in CheckpointManager(
+        str(tmp_path / "ckpt_xlstm")).restore()[0]
