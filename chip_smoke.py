@@ -30,19 +30,19 @@ Phases, each printing one JSON line or more:
                Sq != Skv, windows, every tile) and two launches of each,
                bit for bit; then the bf16
                split-KV variants of flash_decode_paged and flash_decode
-               at D = 64 and 128 (page sizes 4 to 256, ragged last
+               at D = 64, 80 and 128 (page sizes 4 to 256, ragged last
                chunks, wrapped rings, rows with no live slot), two
                launches bit for bit, and a request's bits unchanged by
                its row, its siblings, its page numbers, the table width
-               and the batch; flash_decode also at zamba2-2.7b's shared
-               attention (B 8, H = KV = 32, D = 80, the fp32 CUDA-core
-               variant in bf16 too) and quant_matmul at its MLP (M = 8
-               and 4,096, exactly equal); flash_decode at whisper-small's
-               decoder (B 8, H = KV = 12: g = 1, D = 64, 68 live slots of
-               69; "tc", two launches and a subset of the batch bit for
-               bit) and quant_matmul at its MLP (M = 8 and 12,000,
-               exactly equal), and at starcoder2-3b's in phase 15's
-               training forward (M = 1,024, exactly equal);
+               and the batch, at Qwen2-7B's and at zamba2-2.7b's shared
+               attention (8 rows, H = KV = 32, D = 80: "tc" in bf16, the
+               fp32 CUDA-core variant in fp32); quant_matmul at zamba2's
+               MLP (M = 8 and 4,096, exactly equal); flash_decode at
+               whisper-small's decoder (B 8, H = KV = 12: g = 1, D = 64,
+               68 live slots of 69; "tc", two launches and a subset of
+               the batch bit for bit) and quant_matmul at its MLP (M = 8
+               and 12,000, exactly equal), and at starcoder2-3b's in
+               phase 15's training forward (M = 1,024, exactly equal);
 4. cpu_vs_gpu — Qwen2-7B at full width cut to 2 layers in fp32: the port
                on the CPU (plain versions) and on the card (kernels) must
                emit equal greedy tokens — the paged engine through a
@@ -68,9 +68,10 @@ Phases, each printing one JSON line or more:
                flash_decode at granite's H = 16 over KV = 8, D = 64,
                quant_matmul at DeepSeek-V2's shared experts (M = 4 and
                1,024); sub-rows at phase 13's: flash_decode at zamba2's
-               D = 80 and quant_matmul at its shared MLP; at phase 14's:
-               flash_decode at whisper-small's g = 1 and quant_matmul at
-               its MLP (M = 8 and 12,000); at phase 15's:
+               D = 80 (the tensor-core variant it ran, beside SDPA and
+               the bound) and quant_matmul at its shared MLP; at phase
+               14's: flash_decode at whisper-small's g = 1 and
+               quant_matmul at its MLP (M = 8 and 12,000); at phase 15's:
                quant_matmul at starcoder2-3b's training MLP (M = 1,024);
                the rows name the variant and tiles (decode: chunk and
                chunks; quant_matmul: splits) that ran, and the decode
@@ -155,7 +156,7 @@ Phases, each printing one JSON line or more:
                the weight-shared attention+MLP block after every 6, bf16
                weights from seed 0) under the bf16 and the int8-mlp
                policy — flash_decode 9 launches a decode step, all on the
-               fp32 CUDA-core variant at D = 80, quant_matmul 27 a
+               split-KV tensor-core variant at D = 80, quant_matmul 27 a
                forward under int8-mlp, all "tc" — with each request's
                recurrent state beside its K/V bytes and a profile of 4
                decode steps; (b) xlstm-125m at full width and depth (6
@@ -264,8 +265,8 @@ Phases, each printing one JSON line or more:
                mesh, a prefill of 8 x 128 (whisper: 8 x 1,500 stub frames
                and a 4-token prompt) and 8 greedy steps under bf16 and
                int8-mlp (xlstm fp32), tokens and last logits bit-equal to
-               the unsharded port, flash_decode 9 x 8 (zamba2, all
-               "ffma") and 12 x 8 (whisper, all "tc") a run, each int8-mlp
+               the unsharded port, flash_decode 9 x 8 (zamba2) and
+               12 x 8 (whisper) a run, all "tc", each int8-mlp
                quant_matmul launch bit-equal to its plain version; then
                3 trainer steps on depth cuts (zamba2 6 layers: one
                hybrid_period, so the shared block runs; xlstm 2 pairs;
@@ -332,8 +333,7 @@ KERNELS = ("flash_decode_paged", "flash_prefill_ragged", "flash_decode",
            "quant_matmul", "block_sparse_matmul", "flash_attention")
 # attention shapes (H, KV, D): Qwen2-7B's (phases 5 and 8),
 # granite-moe-1b-a400m's (phase 12), zamba2-2.7b's shared block
-# (phase 13: D = 80, the fp32 CUDA-core variant in bf16 too) and
-# whisper-small's decoder (phase 14)
+# (phase 13: g = 1, D = 80) and whisper-small's decoder (phase 14)
 QWEN_ATTN = (28, 4, 128)
 GRANITE_ATTN = (16, 8, 64)
 ZAMBA_ATTN = (32, 32, 80)
@@ -435,8 +435,8 @@ def _tc_ptxas(log: str) -> dict:
 # block_sparse_matmul's M tiles 64, 128 and 256
 TC_INSTANCES = {"flash_attention": (8, ("HGMMA", "UTMALDG")),
                 "flash_prefill_ragged": (4, ("HGMMA",)),
-                "flash_decode_paged": (4, ("HMMA", "LDGSTS")),
-                "flash_decode": (4, ("HMMA", "LDGSTS")),
+                "flash_decode_paged": (6, ("HMMA", "LDGSTS")),
+                "flash_decode": (6, ("HMMA", "LDGSTS")),
                 "quant_matmul": (5, ("IGMMA", "UTMALDG")),
                 "block_sparse_matmul": (3, ("HGMMA", "UTMALDG"))}
 DECODE_TC = ("flash_decode_paged", "flash_decode")
@@ -951,20 +951,24 @@ def _check_dead_row(name, out) -> None:
 
 
 def _check_decode_tc(gen, worst) -> int:
-    """The bf16 split-KV variants at D in {64, 128}, g in {1, 2, 7}.
+    """The bf16 split-KV variants at D in {64, 80, 128}, g in {1, 2, 7}.
     flash_decode_paged: page sizes 4 to 256 (48: chunks of two pages;
     256: a chunk of one page walked in two stages), about 300 slots a
     row so that the last chunk is cut at M pages, seq lens 1, mid and
     capacity and a row with no live slot.  flash_decode: caches of 37
     (one ragged chunk), 577 and 1000 slots under linear and wrapped-ring
-    masks, and an all-dead mask.  Each against its plain version within
-    ``bf16_tol``; dead rows against 0."""
+    masks, and an all-dead mask.  Then both at zamba2-2.7b's shared
+    attention (8 rows, H = KV = 32, D = 80): the paged kernel over the
+    phase-5 pool with a row with no live slot, the contiguous one's
+    all-dead mask over the 577-slot cache (:func:`phase_kernels` holds
+    its live masks at that shape).  Each against its plain version
+    within ``bf16_tol``; dead rows against 0."""
     import torch
     from repro_torch.kernels import decode_tc as dtc
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import flash_decode_paged as fdp
     dt, n = torch.bfloat16, 0
-    for d in (64, 128):
+    for d in dtc.HEAD_DIMS:
         for g in (1, 2, 7):
             for ps in DTC_PAGE_SIZES:
                 r, kvh = 4, 2
@@ -994,21 +998,48 @@ def _check_decode_tc(gen, worst) -> int:
                     n += 1
                 _check_dead_row("flash_decode", fd.flash_decode(
                     q, k, v, torch.zeros_like(mask)))
+    h, kvh, d = ZAMBA_ATTN
+    r, ps, m = SERVE["max_slots"], SERVE["page_size"], SERVE["max_blocks"]
+    cap = m * ps
+    q, kp, vp, bt, mask = _decode_inputs(
+        gen, r, h, kvh, d, ps, m, [0, 1, 17, 255, 300, 544, 576, cap], dt)
+    mask[0] = False
+    out = fdp.flash_decode_paged(q, kp, vp, bt, mask)
+    _expect_decode_tc(fdp, dtc.paged_chunk(ps),
+                      dtc.n_chunks(cap, dtc.paged_chunk(ps)))
+    ref = fdp.flash_decode_paged_plain(q, kp, vp, bt, mask)
+    _compare("flash_decode_paged", out[1:], ref[1:], dt, worst,
+             ("tc", "zamba2", h, kvh, d, ps))
+    _check_dead_row("flash_decode_paged", out[0])
+    n += 1
+    cache_len = GENERATE["prompt_len"] + GENERATE["gen"] + 1
+    q, k, v = _contig_inputs(gen, r, cache_len, h, kvh, d, dt)
+    _check_dead_row("flash_decode", fd.flash_decode(
+        q, k, v, torch.zeros(cache_len, dtype=torch.bool, device="cuda")))
+    _expect_decode_tc(fd, dtc.CHUNK, dtc.n_chunks(cache_len, dtc.CHUNK))
     return n
 
 
 def _check_decode_tc_bits(gen) -> dict:
     """The invariance contract of the split-KV variants, bit for bit at
-    the serving shapes (H = 28 over KV = 4, D = 128): two launches agree;
-    a request's output is the same in another row with other siblings,
+    the serving shapes (H = 28 over KV = 4, D = 128) and at zamba2-2.7b's
+    shared attention (H = KV = 32, D = 80): two launches agree; a
+    request's output is the same in another row with other siblings,
     with its pages renumbered and with a wider block table (entries on
     the scratch page 0, masked); a sequence's is the same in a smaller
     batch."""
+    checks = _decode_tc_bits(gen, *QWEN_ATTN)
+    checks["zamba2"] = _decode_tc_bits(gen, *ZAMBA_ATTN)
+    return checks
+
+
+def _decode_tc_bits(gen, h, kvh, d) -> dict:
+    """:func:`_check_decode_tc_bits` at one (H, KV, D)."""
     import torch
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import flash_decode_paged as fdp
     dt = torch.bfloat16
-    r, h, kvh, d, ps, m = 8, 28, 4, 128, 16, 37
+    r, ps, m = 8, 16, 37
     seq = [544, 1, 300, 575, 17, 128, 129, 591]
     q, kp, vp, bt, mask = _decode_inputs(gen, r, h, kvh, d, ps, m, seq, dt)
     call = fdp.flash_decode_paged
@@ -1048,7 +1079,8 @@ def _check_decode_tc_bits(gen) -> dict:
                         v[idx].contiguous(), mask), full[idx])
     if not all(checks.values()) or fdp.last_launch["variant"] != "tc" \
             or fd.last_launch["variant"] != "tc":
-        raise AssertionError(f"split-KV decode bits differ: {checks}")
+        raise AssertionError(f"split-KV decode bits differ at D = {d}: "
+                             f"{checks}")
     return checks
 
 
@@ -1121,7 +1153,7 @@ def _check_smem_models() -> int:
                                   fpr.smem_bytes(bq, g, d, ps),
                                   fpr._lib().flash_prefill_ragged_smem_bytes(
                                       bq, g, d, ps)))
-    for d in (64, 128):
+    for d in dtc.HEAD_DIMS:
         for chunk in (dtc.CHUNK, 256, 512):
             pairs.append((("fd_tc", d, chunk), dtc.smem_bytes(d, chunk),
                           fd._lib().flash_decode_tc_smem_bytes(d, chunk)))
@@ -1239,9 +1271,11 @@ def phase_kernels() -> dict:
                          fd.flash_decode_plain(q, k, v, mask), dtype, worst,
                          (b, h, kvh, d, n, case))
                 n_cases += 1
-                if d == ZAMBA_ATTN[2] and fd.last_launch["variant"] != "ffma":
+                want = "tc" if dtype == torch.bfloat16 else "ffma"
+                if d == ZAMBA_ATTN[2] and fd.last_launch["variant"] != want:
                     raise AssertionError(f"flash_decode at D = {d}: "
-                                         f"{fd.last_launch}, expected ffma")
+                                         f"{fd.last_launch}, expected "
+                                         f"{want}")
     qmm_checks = _check_quant_matmul(gen)
     n_qmm = qmm_checks["cases"]
     ste = _check_ste(gen)
@@ -1593,7 +1627,7 @@ def phase_generate(cfg, lm, c=GENERATE, policies=("bf16", "int8-mlp"),
     PyTorch), quant_matmul each ``mlp/…`` product under int8-mlp.
     Under either policy every flash_decode launch takes the variant
     ``decode_tc.variant`` gives the model's head dim (the tensor cores at
-    D = 64 and 128, zamba2's D = 80 the fp32 CUDA-core kernel).  For the
+    D = 64, 80 and 128).  For the
     SSM and hybrid families the run also reports a request's recurrent
     state beside its attention K/V.  An enc-dec model's prefill encodes
     ``frames`` (its encoder's ``mlp/…`` products, once a run, also
@@ -1644,7 +1678,7 @@ def phase_generate(cfg, lm, c=GENERATE, policies=("bf16", "int8-mlp"),
             raise AssertionError(f"generate {cfg.name} {pname}: {syncs} "
                                  f"MoE host reads")
         # bf16 q and cache: every decode step's attention on the variant
-        # the head dim gives (tensor cores at D = 64 or 128)
+        # the head dim gives (tensor cores at D = 64, 80 or 128)
         want_tc = counts["flash_decode"] if decode_tc_variant == "tc" else 0
         if tc_counts["flash_decode"] != want_tc:
             raise AssertionError(f"generate {cfg.name} {pname}: tensor-core "
@@ -1907,11 +1941,12 @@ def phase_ssm_hybrid() -> dict:
     ``generate`` (the paged engine refuses both, as the JAX package's
     does): (a) zamba2-2.7b at full width and depth (54 Mamba2 layers, the
     shared attention+MLP block after every 6; bf16 weights from seed 0)
-    under the bf16 and the int8-mlp policy — flash_decode 9 a decode step,
-    all on the fp32 CUDA-core variant at D = 80, quant_matmul 27 a
-    forward under int8-mlp, all "tc" — and a profile of
-    :data:`PROFILE_STEPS` decode steps; (b) xlstm-125m at full width and depth (6 mLSTM/sLSTM pairs, fp32
-    weights) under the bf16 policy, no kernel launched, and its profile;
+    under the bf16 and the int8-mlp policy — flash_decode 9 a decode step
+    and quant_matmul 27 a forward under int8-mlp, all "tc" (flash_decode
+    on the split-KV tensor-core variant at D = 80) — and a profile of
+    :data:`PROFILE_STEPS` decode steps; (b) xlstm-125m at full width and
+    depth (6 mLSTM/sLSTM pairs, fp32 weights) under the bf16 policy, no
+    kernel launched, and its profile;
     (c) for each, a prefill of 511 tokens and one decode step against the
     512-token prefill's last logits (:func:`_handoff`); (d) the CPU
     against the card in fp32.  fp32 products stay fp32 (no TF32).
@@ -4631,7 +4666,7 @@ def _mf_decode_one_rank(arch: str) -> tuple[dict, dict]:
                     f"port: {int((toks != ref_toks).sum())} tokens, logits "
                     f"{float((lg - ref_lg).abs().max())}")
             fd = _attn_layers(pcfg) * c["steps"]
-            fd_tc = fd if pcfg.enc_dec else 0  # zamba2's D = 80: "ffma"
+            fd_tc = fd     # zamba2 (D = 80) and whisper (D = 64): "tc"
             qmm = _mf_qmm_want(pcfg, c["steps"]) if pol == "int8-mlp" else 0
             want = {k: 0 for k in counts}
             want.update(flash_decode=fd, quant_matmul=qmm)
@@ -5135,7 +5170,8 @@ def phase_timing(launches: dict, families: dict, hybrid: dict,
     with sub-rows at granite-moe-1b-a400m's burst and ``generate``
     shapes and DeepSeek-V2's shared experts (``families``: phase 12's
     launches), at zamba2-2.7b's shared block (``hybrid``: phase 13's
-    launches): flash_decode at D = 80 and quant_matmul at its MLP, and
+    launches): flash_decode at D = 80 on the tensor-core variant (its
+    time beside SDPA's and the bound) and quant_matmul at its MLP, and
     at whisper-small (``encdec``: phase 14's launches): flash_decode at
     g = 1 over 68 live slots and quant_matmul at its MLP, and at
     starcoder2-3b's training forward (``train``: phase 15's launches):
@@ -5170,7 +5206,8 @@ def phase_timing(launches: dict, families: dict, hybrid: dict,
     sub = _flash_decode_row(gen, families, flush, sdpa_gqa, GRANITE_ATTN)
     row["granite"] = {key: sub[key] for key in SUB_ROW_KEYS + ("launches",)}
     sub = _flash_decode_row(gen, hybrid, flush, sdpa_gqa, ZAMBA_ATTN)
-    row["zamba2"] = {key: sub[key] for key in SUB_ROW_KEYS + ("launches",)}
+    row["zamba2"] = {key: sub[key] for key in SUB_ROW_KEYS
+                     + ("launches", "device_ms_by_kernel")}
     sub = _flash_decode_row(gen, encdec, flush, sdpa_gqa, WHISPER_ATTN,
                             WHISPER, WHISPER_CACHE_LEN - 2)
     row["whisper"] = {key: sub[key] for key in SUB_ROW_KEYS + ("launches",)}

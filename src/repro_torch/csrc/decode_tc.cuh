@@ -1,10 +1,11 @@
 // The split-KV tensor-core decode main loop shared by the bf16 variants of
 // flash_decode_paged.cu and flash_decode.cu (sm_90a).
 //
-// One query token per row attends over the row's logical KV slots.  The
-// two kernels differ only in a Slots functor that maps a logical slot to
-// the element offset of its K/V row (contiguous: base + slot * KV * D;
-// paged: through the block table) and says whether the mask keeps it.
+// One query token per row attends over the row's logical KV slots, at
+// head dim D = 64, 80 or 128.  The two kernels differ only in a Slots
+// functor that maps a logical slot to the element offset of its K/V row
+// (contiguous: base + slot * KV * D; paged: through the block table) and
+// says whether the mask keeps it.
 //
 // Split.  The slots are cut into fixed chunks (kernels/decode_tc.py: a
 // chunk depends on the page size alone, never on the batch, the table
@@ -19,7 +20,10 @@
 // lane), warp w taking sub-tiles w, w + 4, ...; each warp keeps up to two
 // sub-tiles of K and V in its own ring, copied by 16-byte cp.async (K and
 // V in separate groups, so V lands while QK^T and the softmax run) into
-// bf16 rows padded by 16 bytes (ldmatrix without bank conflicts).  Dead
+// bf16 rows padded by 16 bytes (ldmatrix without bank conflicts: a row is
+// D + 8 elements, so the 8 rows an ldmatrix reads fall on distinct 4-bank
+// groups at D = 64, 80 and 128).  A lane copies the sub-tile's (row,
+// 16-byte chunk) pairs lane, lane + 32, ... in row-major order.  Dead
 // slots are zero-filled with cp.async's src-size-0 form and no address of
 // theirs is ever read; a sub-tile without a live slot is neither loaded
 // nor computed.  Warps synchronise only among their own lanes until the
@@ -29,12 +33,14 @@
 // a kv head are the rows of a 16-row A tile (padded with zero rows, which
 // are never written; g > 16 takes one row group of the grid per 16
 // heads), loaded once per CTA into registers.  S = q K^T takes K's B
-// fragments through ldmatrix; the scale, folded with log2(e), multiplies
-// the fp32 product (q is not scaled in bf16: 1/sqrt(128) is no power of
-// two).  The online softmax runs in registers: the 4 lanes sharing a row
-// reduce its max in a fixed butterfly (xor 1, 2); p = live ?
-// 2^(S * scale * log2 e - m) : 0.  P, rounded to bf16, is the A operand of
-// O += P V, whose B fragments come through ldmatrix.trans; O stays fp32.
+// fragments through ldmatrix, 32 columns of D a step and the last 16 in
+// one more step where D % 32 == 16 (D = 80); the scale, folded with
+// log2(e), multiplies the fp32 product (q is not scaled in bf16:
+// 1/sqrt(128) is no power of two).  The online softmax runs in
+// registers: the 4 lanes sharing a row reduce its max in a fixed
+// butterfly (xor 1, 2); p = live ? 2^(S * scale * log2 e - m) : 0.  P,
+// rounded to bf16, is the A operand of O += P V, whose B fragments come
+// through ldmatrix.trans; O stays fp32.
 // At the chunk's end the four warps' partials are combined in warp order
 // through shared memory.
 //
@@ -110,6 +116,13 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
       : "r"(addr)
       : "memory");
 }
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr)
+      : "memory");
+}
 __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
@@ -182,7 +195,8 @@ __device__ __forceinline__ void chunk_partial(
     const Slots& sl, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ q, const Cta& cta, int chunk, float scale_log2,
     const Workspace& ws, unsigned char* smem) {
-  static_assert(D == 64 || D == 128, "D is 64 or 128");
+  static_assert(D == 64 || D == 80 || D == 128, "D is 64, 80 or 128");
+  static_assert(kSub == 32, "the copy walks a sub-tile in steps of 32");
   static_assert(kRows * (D + 2) * 4 <= stage_bytes(D),
                 "a warp's partial fits in its first stage");
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -206,7 +220,6 @@ __device__ __forceinline__ void chunk_partial(
   unsigned char* ring = smem + warp * S * stage_bytes(D);
   const uint32_t ring_s = repro::tc::smem_u32(ring);
   constexpr int kCh = D / 8;       // 16-byte chunks of a row
-  constexpr int kPer = 32 / kCh;   // rows one warp instruction copies
 
   // liveness of the 32 slots of the warp's i-th sub-tile, bit = lane
   auto live_bits = [&](int i) {
@@ -223,15 +236,17 @@ __device__ __forceinline__ void chunk_partial(
     const long long off = in ? sl.offset(slot) : 0;
     const uint32_t live = __ballot_sync(0xffffffffu, in && sl.live(slot));
     const uint32_t kd = ring_s + (i % S) * stage_bytes(D);
-    const int c = lane % kCh, j0 = lane / kCh;
 #pragma unroll
     for (int pass = 0; pass < 2; ++pass) {
       const bf16* src = pass == 0 ? k : v;
       const uint32_t dst = kd + pass * kSub * pitch(D) * 2;
       if (live) {
+        // the sub-tile's kSub x kCh (row, chunk) pairs in row-major order,
+        // lane + 32 u for u = 0 .. kCh - 1
 #pragma unroll
-        for (int u = 0; u < kSub / kPer; ++u) {
-          const int j = j0 + kPer * u;
+        for (int u = 0; u < kCh; ++u) {
+          const int idx = lane + 32 * u;
+          const int j = idx / kCh, c = idx - j * kCh;
           const long long o = __shfl_sync(0xffffffffu, off, j);
           const bool ok = (live >> j) & 1u;
           repro::tc::cp_async16(dst + (j * pitch(D) + 8 * c) * 2,
@@ -274,6 +289,16 @@ __device__ __forceinline__ void chunk_partial(
           mma_bf16(s[j], qa[2 * kk], b[0], b[1]);
           mma_bf16(s[j], qa[2 * kk + 1], b[2], b[3]);
         }
+      if constexpr (D % 32 == 16) {
+        // the last 16 columns (D = 80): one k step, lanes 0-15 address
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          uint32_t b[2];
+          ldsm_x2(b, kd + ((8 * j + (lane & 7)) * pitch(D) + D - 16 +
+                           8 * ((lane >> 3) & 1)) * 2);
+          mma_bf16(s[j], qa[D / 16 - 1], b[0], b[1]);
+        }
+      }
       // online softmax of rows grp (h = 0) and grp + 8 (h = 1); element
       // e of n tile j is slot 8 j + 2 tig + (e & 1)
       float mx[2] = {kNegInf, kNegInf};

@@ -19,7 +19,7 @@
 // Two variants; kernels/decode_tc.py::variant picks one from the dtypes
 // and D.
 //
-// bf16 q and cache at D = 64 or 128 (flash_decode_tc_launch): the
+// bf16 q and cache at D = 64, 80 or 128 (flash_decode_tc_launch): the
 // split-KV tensor-core main loop of decode_tc.cuh, which says what the
 // split, the cp.async ring and mma.sync do.  Here slot s of sequence b
 // is at (b * L + s) * KV * D + kh * D, and the chunk is a fixed number of
@@ -300,9 +300,10 @@ extern "C" long long flash_decode_tc_smem_bytes(int D, int chunk) {
   return dtc::smem_bytes(D, chunk);
 }
 
-// bf16 q and cache at D = 64 or 128.  chunk: slots of a chunk; n_chunks =
-// ceil(L / chunk); ws: the fp32 workspace of B * KV * n_chunks * g *
-// (D + 2) floats.  q and cache 16-byte aligned (16-byte cp.async).
+// bf16 q and cache at D = 64, 80 or 128.  chunk: slots of a chunk;
+// n_chunks = ceil(L / chunk); ws: the fp32 workspace of B * KV *
+// n_chunks * g * (D + 2) floats.  q and cache 16-byte aligned (16-byte
+// cp.async).
 extern "C" int flash_decode_tc_launch(const void* q, const void* k,
                                       const void* v, const uint8_t* mask,
                                       void* out, float* ws, int B, int H,
@@ -320,6 +321,8 @@ extern "C" int flash_decode_tc_launch(const void* q, const void* k,
                              n_chunks, scale, s);
   REPRO_FD_TC(64, 1)
   REPRO_FD_TC(64, 2)
+  REPRO_FD_TC(80, 1)
+  REPRO_FD_TC(80, 2)
   REPRO_FD_TC(128, 1)
   REPRO_FD_TC(128, 2)
 #undef REPRO_FD_TC

@@ -15,8 +15,8 @@
 // Two variants; kernels/decode_tc.py::variant picks one from the dtypes
 // and D.
 //
-// bf16 q and pages at D = 64 or 128 (flash_decode_paged_tc_launch): the
-// split-KV tensor-core main loop of decode_tc.cuh, which says what the
+// bf16 q and pages at D = 64, 80 or 128 (flash_decode_paged_tc_launch):
+// the split-KV tensor-core main loop of decode_tc.cuh, which says what the
 // split, the cp.async ring and mma.sync do.  Here a logical slot s of
 // request r reaches its K/V row through the block table,
 // (bt[r][s / ps] * ps + s % ps) * KV * D + kh * D; a chunk is a whole
@@ -321,8 +321,8 @@ extern "C" long long flash_decode_paged_tc_smem_bytes(int D, int chunk) {
   return dtc::smem_bytes(D, chunk);
 }
 
-// bf16 q and pages at D = 64 or 128.  chunk: slots of a chunk, a whole
-// number of pages; n_chunks = ceil(M * ps / chunk); ws: the fp32
+// bf16 q and pages at D = 64, 80 or 128.  chunk: slots of a chunk, a
+// whole number of pages; n_chunks = ceil(M * ps / chunk); ws: the fp32
 // workspace of R * KV * n_chunks * g * (D + 2) floats.  q and pages
 // 16-byte aligned (16-byte cp.async).
 extern "C" int flash_decode_paged_tc_launch(
@@ -342,6 +342,8 @@ extern "C" int flash_decode_paged_tc_launch(
                              s);
   REPRO_FDP_TC(64, 1)
   REPRO_FDP_TC(64, 2)
+  REPRO_FDP_TC(80, 1)
+  REPRO_FDP_TC(80, 2)
   REPRO_FDP_TC(128, 1)
   REPRO_FDP_TC(128, 2)
 #undef REPRO_FDP_TC

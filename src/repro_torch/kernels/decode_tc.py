@@ -13,21 +13,26 @@ from __future__ import annotations
 
 import math
 
-from repro_torch.kernels import attention_tc
+import torch
+
+from repro_torch.kernels.attention_tc import _dtype
 
 CHUNK = 128         # slots of a contiguous chunk; the most a paged one takes
 SUB = 32            # slots of a sub-tile (one per lane of a warp)
 WARPS = 4           # warps of a partial CTA
 MAX_STAGES = 2      # sub-tiles a warp keeps in flight
+HEAD_DIMS = (64, 80, 128)   # head dims the launch tables instantiate
 
 
 def variant(q_dtype, kv_dtype, d: int) -> str:
-    """``"tc"`` for bf16 q and K/V at D = 64 or 128 (the split-KV
+    """``"tc"`` for bf16 q and K/V at D = 64, 80 or 128 (the split-KV
     tensor-core kernels), ``"ffma"`` (the fp32 CUDA-core kernels)
-    otherwise: the rule of the prefill pair (``attention_tc.variant``).
-    Any g takes either: the tensor-core kernels cover g query heads in
-    row groups of 16."""
-    return attention_tc.variant(q_dtype, kv_dtype, d)
+    otherwise; dtypes as torch dtypes or names.  The prefill pair's rule
+    (``attention_tc.variant``) stays at D = 64 and 128.  Any g takes
+    either: the tensor-core kernels cover g query heads in row groups of
+    16."""
+    return "tc" if _dtype(q_dtype) == _dtype(kv_dtype) == torch.bfloat16 \
+        and d in HEAD_DIMS else "ffma"
 
 
 def paged_chunk(page_size: int) -> int:

@@ -10,7 +10,7 @@ package's ``kernels/flash_decode.py``; it picks its own tiling (no
 ``block_kv`` argument) and handles any cache length without a pad copy.
 
 Two variants, picked by ``decode_tc.variant`` from the dtypes and D: bf16
-q and cache at D = 64 or 128 take the split-KV tensor-core kernel
+q and cache at D = 64, 80 or 128 take the split-KV tensor-core kernel
 (``"tc"``: fixed chunks of ``decode_tc.CHUNK`` slots, one CTA per chunk,
 kv head and sequence writing partials to a workspace, a second kernel
 combining them in chunk order; the main loop it shares with

@@ -10,7 +10,7 @@ replaces the Pallas TPU kernel of the JAX package's
 ``kernels/flash_decode_paged.py``.
 
 Two variants, picked by ``decode_tc.variant`` from the dtypes and D: bf16
-q and pages at D = 64 or 128 take the split-KV tensor-core kernel
+q and pages at D = 64, 80 or 128 take the split-KV tensor-core kernel
 (``"tc"``: fixed chunks of whole pages, one CTA per chunk, kv head and
 request writing partials to a workspace, a second kernel combining them
 in chunk order; the main loop it shares with ``flash_decode``'s); fp32,

@@ -26,6 +26,7 @@ import torch
 from repro.kernels.flash_decode import flash_decode as jax_decode
 from repro.kernels.flash_decode_paged import \
     flash_decode_paged as jax_decode_paged
+from repro_torch.kernels import attention_tc
 from repro_torch.kernels import autotune as tat
 from repro_torch.kernels import decode_tc as dtc
 from repro_torch.kernels import flash_decode as fd
@@ -156,7 +157,7 @@ PAGES = {4: 40, 16: 12, 48: 5, 128: 3}       # page size -> pages a row
 
 
 @pytest.mark.parametrize("ps", sorted(PAGES))
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128])
 @pytest.mark.parametrize("g", [1, 2, 7])
 def test_paged_tc_arithmetic_within_card_tolerance(g, d, ps):
     """lens 0 (no live slot), 1, mid and capacity; 1 or 2 kv heads; the
@@ -186,7 +187,7 @@ def _contig_masks(n):
 
 
 @pytest.mark.parametrize("n", [37, 577])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128])
 @pytest.mark.parametrize("g", [1, 2, 7])
 def test_contig_tc_arithmetic_within_card_tolerance(g, d, n):
     rng = np.random.default_rng(7 * g + d + n)
@@ -205,17 +206,43 @@ def test_contig_tc_arithmetic_within_card_tolerance(g, d, n):
         assert err <= bf16_tol(ref), (err, bf16_tol(ref))
 
 
+def test_contig_tc_arithmetic_at_zamba2_shared_attention():
+    """zamba2-2.7b's shared attention (B = 8, H = KV = 32: g = 1, D = 80)
+    over the 577-slot cache of a ``generate`` run, under a linear mask
+    mid-cache: the emulation and the plain version against the Pallas
+    kernel, on the same inputs."""
+    h, d, n, pos = 32, 80, 577, 544
+    rng = np.random.default_rng(2780)
+    q, jq = _bf16(rng, (8, 1, h, d))
+    k, jk = _bf16(rng, (8, n, h, d))
+    v, jv = _bf16(rng, (8, n, h, d))
+    mask = TL.decode_attention_mask(TL.kv_positions_for_cache(pos, n, 0),
+                                    pos, 0)
+    ref = torch.from_numpy(np.asarray(jax_decode(
+        jq, jk, jv, jnp.asarray(mask.numpy()),
+        interpret=True)).astype(np.float32))
+    assert dtc.variant(q.dtype, k.dtype, d) == "tc"
+    for out in (emulate_contig(q, k, v, mask),
+                fd.flash_decode(q, k, v, mask)):
+        err = float((out.float() - ref).abs().max())
+        assert err <= bf16_tol(ref), (err, bf16_tol(ref))
+
+
 # ------------------------------------------------- (b) which inputs go where
 @pytest.mark.parametrize("q_dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kv_dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [8, 32, 64, 96, 128, 256])
+@pytest.mark.parametrize("d", [8, 32, 64, 80, 96, 128, 256])
 def test_variant_rule(q_dt, kv_dt, d):
-    want = "tc" if q_dt == kv_dt == torch.bfloat16 and d in (64, 128) \
-        else "ffma"
+    """The decode pair takes the tensor cores at D = 64, 80 and 128; the
+    prefill pair's rule stays at 64 and 128."""
+    bf16 = q_dt == kv_dt == torch.bfloat16
+    want = "tc" if bf16 and d in (64, 80, 128) else "ffma"
     assert dtc.variant(q_dt, kv_dt, d) == want
     names = (str(q_dt).removeprefix("torch."),
              str(kv_dt).removeprefix("torch."))
     assert dtc.variant(*names, d) == want
+    assert attention_tc.variant(q_dt, kv_dt, d) == \
+        ("tc" if bf16 and d in (64, 128) else "ffma")
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():
@@ -266,7 +293,7 @@ def _plan_bytes(d, chunk):
     return 4 * stages * 2 * 32 * (d + 8) * 2
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128])
 def test_tc_shared_memory_model_and_budget(d):
     for ps in (4, 8, 16, 32, 48, 64, 100, 128, 256, 512):
         nbytes = _plan_bytes(d, dtc.paged_chunk(ps))
@@ -275,6 +302,9 @@ def test_tc_shared_memory_model_and_budget(d):
         assert 16 * (d + 2) * 4 <= 2 * 32 * (d + 8) * 2
     assert dtc.smem_bytes(d, dtc.CHUNK) == _plan_bytes(d, 128)
     assert dtc.stages(dtc.CHUNK) == 1 and dtc.stages(256) == 2
+    # two stages of 32 rows pitched to D + 8 (D = 80: 88, 176 bytes)
+    assert dtc.smem_bytes(d, 256) == {64: 73_728, 80: 90_112,
+                                      128: 139_264}[d]
 
 
 def test_workspace_holds_acc_m_and_l_of_every_chunk():
