@@ -64,7 +64,8 @@ import torch
 from repro_torch.serving.faults import (FaultPlan, InjectedFault,
                                         ProcessCrashed, corrupt_image,
                                         image_checksum)
-from repro_torch.serving.observe import Observability, render_summary
+from repro_torch.serving.observe import (Observability, Stopwatch,
+                                         render_summary)
 from repro_torch.serving.paged_cache import (AllocatorError,
                                              PagedCacheConfig, TRASH_PAGE,
                                              init_paged_cache,
@@ -92,6 +93,14 @@ def greedy_argmax(logits: torch.Tensor) -> torch.Tensor:
                       logits == logits.amax(dim=-1, keepdim=True))
     idx = torch.arange(n, device=logits.device)
     return torch.where(hit, idx, n).amin(dim=-1)
+
+
+def _pow2(n: int) -> int:
+    """The least power of two >= ``n`` (a dispatch's padded row count)."""
+    a = 1
+    while a < n:
+        a *= 2
+    return a
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
@@ -252,16 +261,16 @@ class PagedServingEngine:
     # --------------------------------------------------------- host loop
     def _admit_serial(self, cache, bt, req, params):
         """Serial admission: batch-1 prefill + page scatter (no sharing).
-        Returns (cache, first greedy token)."""
+        Returns (cache, first greedy token (1, 1) on the device)."""
         tok1, pk, pv = self._prefill(params, self._dev(req.prompt[None]))
         n_pp = self.pcfg.pages_for(req.prompt_len)
         rows = self._dev(np.asarray(req.pages[:n_pp], np.int64))
         self._write_pages(cache["blocks"], pk, pv, rows)
         bt[req.slot] = TRASH_PAGE
         bt[req.slot, :len(req.pages)] = req.pages
-        return cache, int(tok1.cpu()[0, 0])
+        return cache, tok1
 
-    def _admit_batched(self, cache, bt, admitted, params, faults=None):
+    def _admit_batched(self, cache, bt, admitted, params, faults, obs):
         """Batched ragged admission: one dispatch per suffix bucket.
 
         Rows of a dispatch are the admissions themselves (compact — idle
@@ -283,7 +292,11 @@ class PagedServingEngine:
         killed by an injected ``dispatch_admit`` fault.  A fault aborts
         the *rest of the boundary* conservatively: later dispatches may
         prefix-share pages the faulted dispatch was supposed to write.
+
+        Each dispatch is a ``serve.dispatch`` span of ``obs`` (the run's
+        telemetry), its host read of the first tokens a ``serve.read``.
         """
+        tracer = obs.tracer
         pcfg = self.pcfg
         bucket = max(1, pcfg.prefill_bucket)
         tok_by_slot: dict[int, int] = {}
@@ -304,13 +317,23 @@ class PagedServingEngine:
                 try:
                     if faults is not None:
                         faults.gate("dispatch_admit")
-                    toks = self._dispatch_admissions(cache, bt, reqs,
-                                                     s_pad, params)
                 except InjectedFault:
                     aborted = True
                     failed.extend(reqs)
                     continue
-                tok_by_slot.update(toks)
+                with obs.span("serve.dispatch") as sp:
+                    if tracer is not None:
+                        sp.set(rids=[r.rid for r in reqs],
+                               rows=_pow2(len(reqs)), s_pad=s_pad,
+                               shared=sum(r.shared_tokens for r in reqs),
+                               suffix=sum(r.prompt_len - r.shared_tokens
+                                          for r in reqs))
+                    tok1 = self._dispatch_admissions(cache, bt, reqs,
+                                                     s_pad, params)
+                    with obs.span("serve.read"):
+                        tok1 = tok1.cpu().numpy()
+                tok_by_slot.update((req.slot, int(tok1[i, 0]))
+                                   for i, req in enumerate(reqs))
                 n_dispatches += 1
         return cache, tok_by_slot, n_dispatches, failed
 
@@ -342,11 +365,10 @@ class PagedServingEngine:
 
     def _dispatch_admissions(self, cache, bt, reqs, s_pad, params):
         """One compact dispatch for ``reqs`` at suffix pad ``s_pad``;
-        returns {slot: first token}.  The pools update in place."""
+        returns each row's first token (rows, 1) on the device.  The
+        pools update in place."""
         pcfg = self.pcfg
-        a = 1
-        while a < len(reqs):
-            a *= 2
+        a = _pow2(len(reqs))
         tokens = np.zeros((a, s_pad), np.int32)
         offs = np.zeros((a,), np.int32)
         lens = np.zeros((a,), np.int32)
@@ -362,12 +384,10 @@ class PagedServingEngine:
             if req.cow_src is not None:
                 cow_src[i] = req.cow_src
                 cow_dst[i] = req.cow_dst
-        tok1 = self._admit_batch(
+        return self._admit_batch(
             params, cache["blocks"], self._dev(tokens), self._dev(gbt),
             self._dev(offs), self._dev(lens), self._dev(cow_src),
             self._dev(cow_dst))
-        tok1 = tok1.cpu().numpy()
-        return {req.slot: int(tok1[i, 0]) for i, req in enumerate(reqs)}
 
     def _swap_out(self, cache, swap, faults=None) -> None:
         """Pull a preempted request's pages back to host memory.  Must
@@ -406,9 +426,7 @@ class PagedServingEngine:
         pk = req.swap.host_k[:, b0:b1]
         pv = req.swap.host_v[:, b0:b1]
         n = len(rows)
-        a = 1
-        while a < n:
-            a *= 2
+        a = _pow2(n)
         if a > n:
             rows = np.concatenate(
                 [rows, np.full((a - n,), TRASH_PAGE, np.int64)])
@@ -583,6 +601,10 @@ class EngineRun:
         self.n_restore_dispatches = 0
         self.prefill_s = 0.0
         self.decode_s = 0.0
+        # the admission and segment intervals' timers while the tracer
+        # is off; with it on, their spans time them
+        self._w_admit = Stopwatch()
+        self._w_segment = Stopwatch()
         if clock is None:
             t0 = time.perf_counter()
             clock = lambda: time.perf_counter() - t0   # noqa: E731
@@ -753,6 +775,108 @@ class EngineRun:
                       site="dispatch_restore" if kind == "restore"
                       else "dispatch_admit")
 
+    def _admit(self, fresh: list, restored: list) -> None:
+        """The boundary's admissions (the ``serve.admit`` interval):
+        restores scatter, fresh requests prefill, then the scheduler
+        finishes the boundary and failed admissions unwind."""
+        engine, sched, faults, clock = (self.engine, self.sched,
+                                        self.faults, self.clock)
+        bt, seq_lens = self.bt, self.seq_lens
+        obs, tracer = self.obs, self.tracer
+        failed_admissions: list = []
+        ok_admitted: list = []
+        restore_fault = False
+        # restores scatter FIRST: a same-boundary fresh admission
+        # may trie-share a restore-range page (full-chunk entries
+        # are matchable pre-ready by design), so its prefill must
+        # only dispatch after the host image is back on device.
+        # The reverse order is safe — a restore reads nothing at
+        # scatter time; its aliased pages are only attended at
+        # the next segment, after every boundary dispatch.
+        for req in restored:
+            if restore_fault:
+                failed_admissions.append(("restore", req))
+                continue
+            try:
+                if faults is not None:
+                    faults.gate("dispatch_restore")
+            except InjectedFault:
+                restore_fault = True
+                failed_admissions.append(("restore", req))
+                continue
+            with obs.span("serve.restore") as sp:
+                if tracer is not None:
+                    b0, b1 = req.restore_blocks
+                    sp.set(rid=req.rid, pages=max(b1 - b0, 0))
+                self.cache, n_disp = engine._restore(self.cache, bt, req)
+            self.n_restore_dispatches += n_disp
+            slot = req.slot
+            seq_lens[slot] = req.swap.n_tokens
+            self.tok[slot] = req.tokens[-1]
+            self.n_gen[slot] = len(req.tokens)
+            self.max_new[slot] = req.max_new_tokens
+            ok_admitted.append(req)
+        if restore_fault:
+            # conservative: a fresh admission may prefix-share a
+            # page in the failed restore's range — without the
+            # host image resident, its prefill would attend
+            # garbage.  The boundary's remaining admissions all
+            # unwind and retry.
+            failed_admissions.extend(("admission", r) for r in fresh)
+        elif fresh and engine.prefill_mode == "batched":
+            self.cache, tok1, n_disp, failed = engine._admit_batched(
+                self.cache, bt, fresh, self.params, faults, obs)
+            for req in fresh:
+                if req.slot in tok1:
+                    self._start_request(req, tok1[req.slot], clock())
+                    ok_admitted.append(req)
+            failed_admissions.extend(("admission", r) for r in failed)
+            self.n_prefill_dispatches += n_disp
+        elif fresh:
+            # serial: one dispatch per admission; a fault aborts the
+            # rest of the boundary, as in the batched path
+            admit_fault = False
+            for req in fresh:
+                if admit_fault:
+                    failed_admissions.append(("admission", req))
+                    continue
+                try:
+                    if faults is not None:
+                        faults.gate("dispatch_admit")
+                except InjectedFault:
+                    admit_fault = True
+                    failed_admissions.append(("admission", req))
+                    continue
+                with obs.span("serve.dispatch") as sp:
+                    if tracer is not None:
+                        sp.set(rids=[req.rid], rows=1,
+                               s_pad=req.prompt_len, shared=0,
+                               suffix=req.prompt_len)
+                    self.cache, tok1 = engine._admit_serial(
+                        self.cache, bt, req, self.params)
+                    with obs.span("serve.read"):
+                        first = int(tok1.cpu()[0, 0])
+                self._start_request(req, first, clock())
+                self.n_prefill_dispatches += 1
+                ok_admitted.append(req)
+        if self.journal is not None:
+            # before finish_boundary: it clears req.swap, which is
+            # what distinguishes a restore from a fresh admission
+            rest_ids = set(map(id, restored))
+            for req in ok_admitted:
+                self.journal.admit(req, restore=id(req) in rest_ids)
+        if tracer is not None:
+            # likewise before finish_boundary, for the restore flag
+            rest_ids = set(map(id, restored))
+            for req in ok_admitted:
+                tracer.event(req.rid, "ADMIT", self.boundary, clock(),
+                             restore=id(req) in rest_ids, slot=req.slot,
+                             pages=len(req.pages or []),
+                             shared_tokens=req.shared_tokens)
+        sched.finish_boundary(ok_admitted)
+        for kind, req in failed_admissions:
+            self._unwind_admission(kind, req)
+
     # ------------------------------------------------------ one boundary
     def step(self) -> str:
         """Advance one segment boundary (the host-loop order run()'s
@@ -766,153 +890,84 @@ class EngineRun:
         caller decides whether idleness means sleep (arrivals coming),
         a watchdog tick (:meth:`note_stall` — queued work that cannot
         admit), or that the run is simply drained.
+
+        With the tracer on, the boundary is a ``serve.step`` span over
+        the phases ``serve.recover``, ``serve.grow``, ``serve.plan``,
+        ``serve.admit`` (its ``serve.restore`` and ``serve.dispatch``
+        spans), ``serve.segment`` and ``serve.commit``; each host read of
+        the device is a ``serve.read`` inside its dispatch or segment.
+        The invariant audit, checkpoint and journal fall in
+        ``serve.step``'s own time.
         """
-        engine, sched, rec = self.engine, self.sched, self.rec
-        faults, clock = self.faults, self.clock
-        bt, seq_lens = self.bt, self.seq_lens
         # the process_crash site: probed only when a journal is armed —
         # without one a process death is unrecoverable and injecting it
         # would only prove the obvious.  The journal drops its unflushed
         # buffer (kill -9: only fsync'd records survive) and the
         # exception escapes run() entirely; RestartRecovery is the only
         # way back.
+        faults = self.faults
         if self.journal is not None and faults is not None \
                 and faults.should_fire("process_crash"):
             self.journal.crash()
             raise ProcessCrashed(self.boundary + 1)
         self.boundary += 1
+        with self.obs.span("serve.step", boundary=self.boundary):
+            return self._boundary()
+
+    def _boundary(self) -> str:
+        """:meth:`step`'s body, after the boundary count advanced."""
+        engine, sched, rec = self.engine, self.sched, self.rec
+        faults, clock = self.faults, self.clock
+        bt, seq_lens = self.bt, self.seq_lens
+        obs, tracer = self.obs, self.tracer
         boundary = self.boundary
         # recovery preflight: quarantined requests whose backoff
         # expired rejoin their tenant queues; queued host images are
         # checksum-verified exactly once (a corrupted/lost image
         # becomes a restart *before* its restore is planned); under
         # sustained pressure, stale queued work is shed (opt-in)
-        rec.release_due(boundary, clock())
-        rec.verify_swaps(boundary, clock())
-        rec.shed_stalled(boundary, clock())
-        # growth-on-demand: back the next segment's writes, possibly
-        # preempting victims...
-        preempted = sched.plan_growth()
-        # ...whose pages must reach host memory before any dispatch
-        # below can recycle them (their refs are already dropped)
-        for req in preempted:
-            engine._swap_out(self.cache, req.swap, faults)
-            self._park_slot(req.swap.slot)
-            if self.journal is not None:
-                # spill the host image beside the journal: a crash from
-                # here on restores this request through the verified-
-                # swap-image lane instead of restarting it
-                self.journal.spill_image(req)
-            if self.tracer is not None:
-                self.tracer.event(req.rid, "PREEMPT", boundary, clock(),
-                                  by=req.preempted_by,
-                                  pages=len(req.swap.pages),
-                                  n_preempted=req.n_preempted)
-        # grown block tables: new pages append to the owned prefix
-        for slot, req in sched.running.items():
-            bt[slot, :len(req.pages)] = req.pages
-        if self.tracer is not None:
-            for slot in sorted(sched.running):
-                if sched.running[slot].stalled:
-                    self.tracer.event(sched.running[slot].rid, "STALL",
-                                      boundary, clock())
+        with obs.span("serve.recover"):
+            rec.release_due(boundary, clock())
+            rec.verify_swaps(boundary, clock())
+            rec.shed_stalled(boundary, clock())
+        with obs.span("serve.grow") as sp:
+            # growth-on-demand: back the next segment's writes, possibly
+            # preempting victims...
+            preempted = sched.plan_growth()
+            # ...whose pages must reach host memory before any dispatch
+            # below can recycle them (their refs are already dropped)
+            for req in preempted:
+                engine._swap_out(self.cache, req.swap, faults)
+                self._park_slot(req.swap.slot)
+                if self.journal is not None:
+                    # spill the host image beside the journal: a crash
+                    # from here on restores this request through the
+                    # verified-swap-image lane instead of restarting it
+                    self.journal.spill_image(req)
+                if tracer is not None:
+                    tracer.event(req.rid, "PREEMPT", boundary, clock(),
+                                 by=req.preempted_by,
+                                 pages=len(req.swap.pages),
+                                 n_preempted=req.n_preempted)
+            # grown block tables: new pages append to the owned prefix
+            for slot, req in sched.running.items():
+                bt[slot, :len(req.pages)] = req.pages
+            if tracer is not None:
+                sp.set(preempted=[r.rid for r in preempted],
+                       pages=sum(len(r.swap.pages) for r in preempted))
+                for slot in sorted(sched.running):
+                    if sched.running[slot].stalled:
+                        tracer.event(sched.running[slot].rid, "STALL",
+                                     boundary, clock())
         admitted = sched.try_admit()
         rec.note_admitted(admitted)
         fresh = [r for r in admitted if r.swap is None]
         restored = [r for r in admitted if r.swap is not None]
-        failed_admissions: list = []
         if admitted:
-            t_pf = time.perf_counter()
-            ok_admitted: list = []
-            restore_fault = False
-            # restores scatter FIRST: a same-boundary fresh admission
-            # may trie-share a restore-range page (full-chunk entries
-            # are matchable pre-ready by design), so its prefill must
-            # only dispatch after the host image is back on device.
-            # The reverse order is safe — a restore reads nothing at
-            # scatter time; its aliased pages are only attended at
-            # the next segment, after every boundary dispatch.
-            for req in restored:
-                if restore_fault:
-                    failed_admissions.append(("restore", req))
-                    continue
-                try:
-                    if faults is not None:
-                        faults.gate("dispatch_restore")
-                    self.cache, n_disp = engine._restore(self.cache, bt,
-                                                         req)
-                except InjectedFault:
-                    restore_fault = True
-                    failed_admissions.append(("restore", req))
-                    continue
-                self.n_restore_dispatches += n_disp
-                slot = req.slot
-                seq_lens[slot] = req.swap.n_tokens
-                self.tok[slot] = req.tokens[-1]
-                self.n_gen[slot] = len(req.tokens)
-                self.max_new[slot] = req.max_new_tokens
-                ok_admitted.append(req)
-            if restore_fault:
-                # conservative: a fresh admission may prefix-share a
-                # page in the failed restore's range — without the
-                # host image resident, its prefill would attend
-                # garbage.  The boundary's remaining admissions all
-                # unwind and retry.
-                failed_admissions.extend(("admission", r)
-                                         for r in fresh)
-            elif fresh and engine.prefill_mode == "batched":
-                self.cache, tok1, n_disp, failed = engine._admit_batched(
-                    self.cache, bt, fresh, self.params, faults)
-                for req in fresh:
-                    if req.slot in tok1:
-                        self._start_request(req, tok1[req.slot], clock())
-                        ok_admitted.append(req)
-                failed_admissions.extend(("admission", r)
-                                         for r in failed)
-                self.n_prefill_dispatches += n_disp
-            elif fresh:
-                # serial: one dispatch per admission; a fault aborts the
-                # rest of the boundary, as in the batched path
-                admit_fault = False
-                for req in fresh:
-                    if admit_fault:
-                        failed_admissions.append(("admission", req))
-                        continue
-                    try:
-                        if faults is not None:
-                            faults.gate("dispatch_admit")
-                        self.cache, first = engine._admit_serial(
-                            self.cache, bt, req, self.params)
-                    except InjectedFault:
-                        admit_fault = True
-                        failed_admissions.append(("admission", req))
-                        continue
-                    self._start_request(req, first, clock())
-                    self.n_prefill_dispatches += 1
-                    ok_admitted.append(req)
-            if self.journal is not None:
-                # before finish_boundary: it clears req.swap, which is
-                # what distinguishes a restore from a fresh admission
-                rest_ids = set(map(id, restored))
-                for req in ok_admitted:
-                    self.journal.admit(req,
-                                       restore=id(req) in rest_ids)
-            if self.tracer is not None:
-                # likewise before finish_boundary, for the restore flag
-                rest_ids = set(map(id, restored))
-                for req in ok_admitted:
-                    self.tracer.event(req.rid, "ADMIT", boundary,
-                                      clock(),
-                                      restore=id(req) in rest_ids,
-                                      slot=req.slot,
-                                      pages=len(req.pages or []),
-                                      shared_tokens=req.shared_tokens)
-            sched.finish_boundary(ok_admitted)
-            for kind, req in failed_admissions:
-                self._unwind_admission(kind, req)
-            dt_pf = time.perf_counter() - t_pf
-            self.prefill_s += dt_pf
-            self._h_admit.observe(dt_pf, (self._rep,))
+            with obs.span("serve.admit", self._w_admit) as pf:
+                self._admit(fresh, restored)
+            self.prefill_s += pf.seconds
+            self._h_admit.observe(pf.seconds, (self._rep,))
         self._retire_finished(clock())
         if not sched.running:
             return "idle"
@@ -974,49 +1029,69 @@ class EngineRun:
             # the plan's max_fires.
             rec._c_dispatch_faults.inc(1.0, (rec._rep,))
             return "skipped"
-        t_seg = time.perf_counter()
-        cache = dict(self.cache, block_tables=engine._dev(bt),
-                     seq_lens=engine._dev(seq_lens))
-        cache, tok_d, act_d, gen_d, toks, emits, pois_d = \
-            engine._segment(self.params, cache, engine._dev(self.tok),
-                            engine._dev(self.active),
-                            engine._dev(self.n_gen),
-                            engine._dev(self.max_new),
-                            engine._dev(poison))
-        # one device->host copy per segment
-        r = self.pcfg.max_slots
-        n_steps = toks.shape[0]
-        host = torch.cat([toks.reshape(-1), emits.reshape(-1).int(),
-                          tok_d.reshape(-1), act_d.int(), gen_d,
-                          cache["seq_lens"], pois_d.int()]).cpu().numpy()
-        dt_seg = time.perf_counter() - t_seg
+        with obs.span("serve.segment", self._w_segment) as seg:
+            cache = dict(self.cache, block_tables=engine._dev(bt),
+                         seq_lens=engine._dev(seq_lens))
+            cache, tok_d, act_d, gen_d, toks, emits, pois_d = \
+                engine._segment(self.params, cache, engine._dev(self.tok),
+                                engine._dev(self.active),
+                                engine._dev(self.n_gen),
+                                engine._dev(self.max_new),
+                                engine._dev(poison))
+            # one device->host copy per segment
+            host = torch.cat([toks.reshape(-1), emits.reshape(-1).int(),
+                              tok_d.reshape(-1), act_d.int(), gen_d,
+                              cache["seq_lens"], pois_d.int()])
+            with obs.span("serve.read"):
+                host = host.cpu().numpy()
+        self.n_segments += 1
+        self.decode_s += seg.seconds
+        with obs.span("serve.commit"):
+            self._commit(cache, host, toks.shape[0], seg.seconds,
+                         bool(admitted or preempted))
+        if self.obs.enabled:
+            alloc = sched.allocator
+            lab = (self._rep,)
+            self._g_free.set(alloc.n_free, lab)
+            self._g_held.set(alloc.n_held, lab)
+            self._g_running.set(len(sched.running), lab)
+            self._g_queued.set(
+                sum(len(st.pending) + len(st.preempted)
+                    for st in sched.rm._tenants.values()), lab)
+        return "ran"
+
+    def _commit(self, cache, host: np.ndarray, n_steps: int,
+                seg_s: float, admitted_or_preempted: bool) -> None:
+        """Fold one segment's host read back into the run (the
+        ``serve.commit`` interval): tokens, slot mirrors, anti-livelock
+        flags, quarantine of poisoned slots, the watchdog, retirement."""
+        sched, clock, tracer = self.sched, self.clock, self.tracer
         self.cache = {"blocks": cache["blocks"],
                       "block_tables": cache["block_tables"],
                       "seq_lens": cache["seq_lens"]}
-        self.n_segments += 1
-        self.decode_s += dt_seg
+        r = self.pcfg.max_slots
         parts = np.split(host, np.cumsum([n_steps * r, n_steps * r,
                                           r, r, r, r]))
         toks = parts[0].reshape(n_steps, r)
         emits = parts[1].reshape(n_steps, r).astype(bool)
         n_emitted = int(emits.sum())
         if n_emitted:
-            self._h_decode.observe(dt_seg / n_emitted, (self._rep,))
+            self._h_decode.observe(seg_s / n_emitted, (self._rep,))
         # copies: host bookkeeping mutates these in place
         self.tok = parts[2].reshape(r, 1).copy()
         self.active = parts[3].astype(bool)
         self.n_gen = parts[4].copy()
-        self.seq_lens = seq_lens = parts[5].copy()
+        self.seq_lens = parts[5].copy()
         poisoned = parts[6].astype(bool)
         for slot, req in sched.running.items():
             req.tokens.extend(
                 int(t) for t in toks[emits[:, slot], slot])
-        if self.tracer is not None:
+        if tracer is not None:
             for slot in sorted(sched.running):
                 n_em = int(emits[:, slot].sum())
                 if n_em:
-                    self.tracer.event(sched.running[slot].rid, "SEGMENT",
-                                      boundary, clock(), tokens=n_em)
+                    tracer.event(sched.running[slot].rid, "SEGMENT",
+                                 self.boundary, clock(), tokens=n_em)
         # anti-livelock: surviving one generated segment makes a
         # request preemptable again
         sched.end_segment(slot for slot in sched.running
@@ -1028,7 +1103,7 @@ class EngineRun:
             self._quarantine_running(sched.running[slot],
                                      "non-finite decode logits",
                                      site="decode_poison")
-        if emits.any() or admitted or preempted:
+        if emits.any() or admitted_or_preempted:
             self.no_progress = 0
         else:
             # unreachable by the liveness argument in resources.py
@@ -1037,16 +1112,6 @@ class EngineRun:
             # fail loudly rather than spin if a policy bug lands
             self.note_stall()
         self._retire_finished(clock())
-        if self.obs.enabled:
-            alloc = sched.allocator
-            lab = (self._rep,)
-            self._g_free.set(alloc.n_free, lab)
-            self._g_held.set(alloc.n_held, lab)
-            self._g_running.set(len(sched.running), lab)
-            self._g_queued.set(
-                sum(len(st.pending) + len(st.preempted)
-                    for st in sched.rm._tenants.values()), lab)
-        return "ran"
 
     # ------------------------------------------------------------- drain
     def evacuate(self) -> list[Request]:

@@ -1,6 +1,6 @@
 """Serving observability: metrics registry, request tracing, exporters.
 
-Zero-dependency telemetry substrate for the serving stack — the one
+Telemetry substrate for the serving stack — the one
 measurement path shared by benches, the SERVE replay scorer, and the
 per-module ``stats()`` views:
 
@@ -17,13 +17,18 @@ per-module ``stats()`` views:
   MIGRATE}* → COMPLETE | DEAD_LETTER).  Every event carries the
   boundary index and the injectable-clock timestamp; ``sequence()``
   drops the timestamps, so traces from seeded ``FaultPlan`` runs are
-  bit-reproducible modulo wall-clock.
+  bit-reproducible modulo wall-clock.  Beside the events it keeps the
+  engine's nested host **spans** (``serve.step`` and its phases, see
+  ``Observability.span``), each also opened as a
+  ``torch.profiler.record_function`` range so a running profiler's
+  device trace carries it on its own clock.
 - **Observability** — the facade the engine/cluster/scheduler thread
   through.  Counters are *always* live (they back the ``stats()`` thin
   views even when telemetry is off); histograms, gauges, the tracer,
   and file exports only exist when the policy enables them — a
   disabled probe costs one attribute lookup against ``NULL_METRIC`` or
-  one ``is not None`` test, and allocates nothing.
+  one ``is not None`` test, and allocates nothing.  Only an armed
+  tracer imports anything (``torch.profiler``, for its spans' ranges).
 
 ``ObservabilityPolicy`` (the plan knob group) lives in
 ``serving/plan.py`` beside the other policy dataclasses; this module
@@ -36,11 +41,12 @@ from __future__ import annotations
 import bisect
 import json
 import os
+import time
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "NULL_METRIC",
-    "Observability", "SpanEvent", "Tracer", "exponential_buckets",
-    "render_summary",
+    "NULL_SPAN", "Observability", "Span", "SpanEvent", "Stopwatch",
+    "Tracer", "exponential_buckets", "render_summary",
 ]
 
 
@@ -412,6 +418,109 @@ class SpanEvent:
                 f"detail={self.detail})")
 
 
+class _NullSpan:
+    """Shared do-nothing span: what ``Observability.span`` returns with
+    the tracer off.  Entering, leaving and ``set`` allocate nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set(self, **detail):
+        pass
+
+
+NULL_SPAN = _NullSpan()
+
+
+class Stopwatch:
+    """A reusable interval timer on ``time.perf_counter``: one clock read
+    on entry, one on exit.  A timed span site hands one in, and gets it
+    back in place of the span when the tracer is off."""
+
+    __slots__ = ("start", "end")
+
+    def __init__(self):
+        self.start = self.end = 0.0
+
+    def __enter__(self):
+        self.start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.end = time.perf_counter()
+        return False
+
+    @property
+    def seconds(self) -> float:
+        return self.end - self.start
+
+
+class Span:
+    """One nested host interval of the engine's work.
+
+    ``start``/``end`` are ``time.perf_counter`` seconds, ``parent`` the
+    index in ``Tracer.spans`` of the span open around it (-1 at the top),
+    ``boundary`` the engine boundary (inherited from the parent unless
+    given), ``replica`` the owning run's label, and ``detail`` the call
+    site's payload (request ids, page and token counts).  While open it
+    also holds a ``torch.profiler.record_function`` range of the same
+    name, entered before the start stamp and left after the end stamp.
+    """
+
+    __slots__ = ("name", "start", "end", "parent", "boundary", "replica",
+                 "detail", "_tracer", "_range")
+
+    def __init__(self, tracer, name: str, boundary, replica: str,
+                 detail: dict):
+        self._tracer = tracer
+        self.name = name
+        self.boundary = boundary
+        self.replica = replica
+        self.detail = detail
+        self.parent = -1
+        self.start = self.end = 0.0
+        self._range = None
+
+    def __enter__(self):
+        tr = self._tracer
+        if tr.open:
+            self.parent = tr.open[-1]
+            if self.boundary is None:
+                self.boundary = tr.spans[self.parent].boundary
+        elif self.boundary is None:
+            self.boundary = -1
+        tr.open.append(len(tr.spans))
+        tr.spans.append(self)
+        self._range = tr.record_function(self.name)
+        self._range.__enter__()
+        self.start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.end = time.perf_counter()
+        self._range.__exit__(None, None, None)
+        self._range = None
+        self._tracer.open.pop()
+        return False
+
+    def set(self, **detail):
+        self.detail.update(detail)
+
+    @property
+    def seconds(self) -> float:
+        return self.end - self.start
+
+    def record(self) -> dict:
+        return {"name": self.name, "start": self.start, "end": self.end,
+                "parent": self.parent, "boundary": self.boundary,
+                "replica": self.replica, "detail": self.detail}
+
+
 # event kind -> lifecycle phase it opens (span_tree delimiter set)
 _PHASE_OF = {
     "SUBMIT": "queued", "ADMIT": "running", "PREEMPT": "swapped",
@@ -421,10 +530,16 @@ _PHASE_OF = {
 
 
 class Tracer:
-    """Append-only event log; per-request views are derived reads."""
+    """Append-only event log; per-request views are derived reads.
+    ``spans`` holds the host spans in the order they opened; ``open``
+    the indices of those still open, innermost last."""
 
     def __init__(self):
+        from torch.profiler import record_function
         self.events: list = []
+        self.spans: list = []
+        self.open: list = []
+        self.record_function = record_function
 
     def event(self, rid, kind: str, boundary: int, t: float, **detail):
         self.events.append(SpanEvent(rid, kind, boundary, t, detail))
@@ -467,10 +582,25 @@ class Tracer:
                 cur["events"].append(e.kind)
         return spans
 
+    def self_seconds(self) -> list:
+        """Each span's duration less its children's, in ``spans`` order."""
+        out = [s.seconds for s in self.spans]
+        for s in self.spans:
+            if s.parent >= 0:
+                out[s.parent] -= s.seconds
+        return out
+
     def to_jsonl(self, path: str) -> str:
         with open(path, "w") as f:
             for e in self.events:
                 f.write(json.dumps(e.record(), sort_keys=True,
+                                   separators=(",", ":")) + "\n")
+        return path
+
+    def spans_to_jsonl(self, path: str) -> str:
+        with open(path, "w") as f:
+            for s in self.spans:
+                f.write(json.dumps(s.record(), sort_keys=True,
                                    separators=(",", ":")) + "\n")
         return path
 
@@ -534,12 +664,29 @@ class Observability:
                                        buckets=buckets) \
             if self.enabled else NULL_METRIC
 
+    # spans only exist when the tracer is on
+    def span(self, name: str, watch: Stopwatch | None = None,
+             boundary: int | None = None, **detail):
+        """A context manager around one phase of the engine's work.
+
+        Tracer on: a :class:`Span` recorded in the tracer, nested under
+        the span open around it.  Tracer off: ``watch`` when one is given
+        (a timed site keeps its one pair of clock reads), else the shared
+        :data:`NULL_SPAN`.  Either way ``with obs.span(...) as sp`` gives
+        an object whose ``seconds`` is the interval when it was timed.
+        Call sites build detail (request-id lists and the like) only when
+        ``tracer is not None``, and add it with ``sp.set(...)``."""
+        tr = self.tracer
+        if tr is None:
+            return NULL_SPAN if watch is None else watch
+        return Span(tr, name, boundary, self.replica, detail)
+
     def summary(self) -> dict:
         return render_summary(self.registry)
 
     def export(self, out_dir: str) -> dict:
-        """Write ``metrics.prom`` (+ ``trace.jsonl`` when tracing) to
-        ``out_dir``; returns the written paths."""
+        """Write ``metrics.prom`` (+ ``trace.jsonl`` and ``spans.jsonl``
+        when tracing) to ``out_dir``; returns the written paths."""
         os.makedirs(out_dir, exist_ok=True)
         paths = {"metrics": os.path.join(out_dir, "metrics.prom")}
         with open(paths["metrics"], "w") as f:
@@ -547,4 +694,6 @@ class Observability:
         if self.tracer is not None:
             paths["trace"] = self.tracer.to_jsonl(
                 os.path.join(out_dir, "trace.jsonl"))
+            paths["spans"] = self.tracer.spans_to_jsonl(
+                os.path.join(out_dir, "spans.jsonl"))
         return paths

@@ -108,8 +108,9 @@ class ObservabilityPolicy:
 
     ``enabled`` arms the full layer for runs built from the plan:
     latency histograms, pool/queue gauges, the request-lifecycle
-    tracer, and (when ``export_dir`` is set) a Prometheus text export
-    plus a JSONL trace written at run end.  Counters stay live either
+    tracer with the engine's boundary spans, and (when ``export_dir``
+    is set) a Prometheus text export plus JSONL traces and spans
+    written at run end.  Counters stay live either
     way — they back the ``stats()`` views — so disabling telemetry
     only strips the probes that cost something (a disabled probe is
     one attribute lookup against a shared no-op handle).

@@ -122,6 +122,14 @@ class ContinuousBatchingScheduler:
             "serving_admission_blocked_total",
             "admission attempts held back, by reason",
             ("replica", "reason"))
+        self._c_rounds = self.obs.counter(
+            "serving_admission_rounds_total",
+            "deficit-round-robin rounds of admission planning",
+            ("replica",))
+        self._c_plans = self.obs.counter(
+            "serving_admission_plans_total",
+            "admission plans computed (one per queue head tried)",
+            ("replica",))
         # gauges only exist when telemetry is on (NULL_METRIC otherwise)
         self._g_deficit = self.obs.gauge(
             "serving_tenant_deficit_pages",
@@ -218,12 +226,39 @@ class ContinuousBatchingScheduler:
         tenant's queue (no overtaking); rounds continue while someone is
         deficit-blocked, bounded by ``ResourceManager.max_rounds``.
         Restored requests come back ``swap is not None`` — the engine
-        runs their swap-in scatter instead of a prefill."""
+        runs their swap-in scatter instead of a prefill.
+
+        The call is the ``serve.plan`` span; its rounds and
+        ``plan_admission`` calls add to ``serving_admission_rounds_total``
+        and ``serving_admission_plans_total``."""
+        tracer = self.obs.tracer
+        with self.obs.span("serve.plan") as sp:
+            if tracer is not None:
+                blocked0 = dict(self._c_blocked.series)
+            admitted, rounds, plans = self._drr_rounds()
+            lab = (self._rep,)
+            self._c_rounds.inc(rounds, lab)
+            self._c_plans.inc(plans, lab)
+            if tracer is not None:
+                sp.set(rounds=rounds, plans=plans,
+                       admitted=[r.rid for r in admitted],
+                       blocked={k[1]: v - blocked0.get(k, 0.0)
+                                for k, v in self._c_blocked.series.items()
+                                if k[0] == self._rep
+                                and v != blocked0.get(k, 0.0)})
+        return admitted
+
+    def _drr_rounds(self) -> tuple[list[Request], int, int]:
+        """``try_admit``'s rounds; returns (admitted, rounds, plans)."""
         admitted: list[Request] = []
+        rounds = plans = 0
         if not self.free_slots or not self.rm.has_queued:
-            return admitted
+            return admitted, rounds, plans
         order = self.rm.rotation()
         for _ in range(self.rm.max_rounds()):
+            if not self.rm.has_queued:
+                break                     # every credit is already 0
+            rounds += 1
             any_admit = False
             deficit_blocked = False
             for st in order:
@@ -239,6 +274,7 @@ class ContinuousBatchingScheduler:
                 while self.free_slots and st.has_queued:
                     req = st.head()
                     plan = self.rm.plan_admission(req)
+                    plans += 1
                     if not isinstance(plan, AdmissionPlan):
                         # quota/pool: head holds the line
                         self._c_blocked.inc(1.0, (self._rep, plan))
@@ -261,7 +297,7 @@ class ContinuousBatchingScheduler:
                     st.deficit = 0.0
             if not any_admit and not deficit_blocked:
                 break
-        return admitted
+        return admitted, rounds, plans
 
     def finish_boundary(self, admitted: list[Request]) -> None:
         """Called by the engine after the boundary dispatches: CoW copies
